@@ -1,0 +1,243 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (subcort_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Needs one CUDA device, nvcc (PATH or $CUDA_HOME, default /usr/local/cuda)
+and this checkout; imports no jax. Phases, in order; any failure raises
+and the exit code is non-zero:
+
+1. device facts: nvidia-smi name and power limit, torch's device name,
+   the TF32 flags (off: the exact path is full float32);
+2. build the gather kernel from ops/csrc/gather_triplanar.cu;
+3. kernel vs plain PyTorch version on the card, bit-equal (torch.equal):
+   single volume (MNI 181x217x181, padded) at 8,192 random centers plus the
+   8 corners, and a 3-subject stack; times of both at N=8,192 (CUDA events);
+4. the main path: a synthetic MNI-sized subject written as NIfTI, segmented
+   by SegmentationEngine.segment_folder at the model's full width (random
+   weights from a seeded generator); checks the output file and that the
+   gather kernel launched at least once per chunk; seconds of the second
+   (warm) run;
+5. card vs CPU: 2,048 candidates through the plain CPU path, label
+   agreement >= 0.999;
+6. one JSON line of kernel facts, then the last line
+   {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+N_TIMED = 8192
+SHAPE = (181, 217, 181)
+CARD_VS_CPU = 2048
+MIN_AGREEMENT = 0.999
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: check failed: {what}")
+
+
+def make_scan(rng):
+    """MNI-dimension synthetic int16 T1, 15-channel prior atlas and
+    subcortical ROI (the same construction as bench.py::make_scan)."""
+    image = np.zeros(SHAPE, np.int16)
+    x, y, z = np.ogrid[:SHAPE[0], :SHAPE[1], :SHAPE[2]]
+    brain = (((x - 90) / 80.0) ** 2 + ((y - 108) / 95.0) ** 2
+             + ((z - 90) / 78.0) ** 2) < 1.0
+    image[brain] = (rng.random(int(brain.sum())) * 800 + 100).astype(np.int16)
+    atlas = np.zeros(SHAPE + (15,), np.float32)
+    atlas[..., 14] = 1.0
+    roi = (((x - 90) / 28.0) ** 2 + ((y - 108) / 32.0) ** 2
+           + ((z - 90) / 26.0) ** 2) < 1.0
+    pri = rng.random((int(roi.sum()), 15)).astype(np.float32)
+    pri /= pri.sum(1, keepdims=True)
+    atlas[roi] = pri
+    return image, atlas, roi
+
+
+def time_ms(torch, fn, iters: int = 50) -> float:
+    """Mean device milliseconds per call, CUDA events, after a warm-up."""
+    for _ in range(5):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch sees no CUDA device; this "
+                         "script runs only on an NVIDIA card")
+
+    from subcort_tpu_torch import (NiftiImage, Options, SegmentationEngine,
+                                   load_nii, save_nii, segment_volume,
+                                   select_device)
+    from subcort_tpu_torch.engine.infer import DEFAULT_CHUNK, candidate_centers
+    from subcort_tpu_torch.models import (TriPlanarNet, TriPlanarSpec,
+                                          init_params)
+    from subcort_tpu_torch.ops import gather_kernel
+    from subcort_tpu_torch.ops.gather_kernel import gather_triplanar_cuda
+    from subcort_tpu_torch.ops.patches import (gather_triplanar,
+                                               gather_triplanar_subjects,
+                                               pad_volume)
+    from subcort_tpu_torch.utils.build import build_library
+
+    # 1. device facts
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    device = select_device(Options(mode="cuda0"))
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+    print(f"tf32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib = build_library("gather_triplanar", [gather_kernel.SOURCE],
+                        verbose=True)
+    print(f"build: {lib.name} in {time.perf_counter() - t0:.3f} s")
+
+    # 3. kernel vs plain on the card
+    gen = torch.Generator(device=device).manual_seed(0)
+    padded = pad_volume(torch.randn(SHAPE, generator=gen, device=device))
+    rand = torch.stack([torch.randint(0, s, (N_TIMED,), generator=gen,
+                                      device=device) for s in SHAPE], 1)
+    rand = rand.to(torch.int32).contiguous()
+    corners = torch.tensor([[x, y, z] for x in (0, SHAPE[0] - 1)
+                            for y in (0, SHAPE[1] - 1)
+                            for z in (0, SHAPE[2] - 1)],
+                           dtype=torch.int32, device=device)
+    centers = torch.cat([rand, corners]).contiguous()
+    stack = torch.randn((3,) + tuple(padded.shape), generator=gen,
+                        device=device)
+    subj = torch.cat([torch.randint(0, 3, (N_TIMED, 1), generator=gen,
+                                    device=device, dtype=torch.int32),
+                      rand], 1).contiguous()
+    max_err = 0.0
+    for mode, got, want in (
+            ("single", gather_triplanar_cuda(padded, centers),
+             gather_triplanar(padded, centers)),
+            ("subjects", gather_triplanar_cuda(stack, subj),
+             gather_triplanar_subjects(stack, subj))):
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and torch.equal(g, w),
+                  f"kernel == plain ({mode} mode)")
+            max_err = max(max_err, float((g - w).abs().max()))
+        print(f"kernel == plain, {mode} mode: {got[0].shape[0]} centers, "
+              "bit-equal")
+    del stack
+    # interleaved plain, kernel, kernel, plain
+    plain_a = time_ms(torch, lambda: gather_triplanar(padded, rand))
+    kernel_a = time_ms(torch, lambda: gather_triplanar_cuda(padded, rand))
+    kernel_b = time_ms(torch, lambda: gather_triplanar_cuda(padded, rand))
+    plain_b = time_ms(torch, lambda: gather_triplanar(padded, rand))
+    kernel_ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
+    print(f"gather at N={N_TIMED}: kernel {kernel_ms:.4f} ms "
+          f"({kernel_a:.4f}, {kernel_b:.4f}), plain {plain_ms:.4f} ms "
+          f"({plain_a:.4f}, {plain_b:.4f})")
+    del padded, rand, centers, subj
+
+    # 4. the main path, at the model's full width
+    spec = TriPlanarSpec()
+    params = init_params(spec, torch.Generator().manual_seed(0))
+    image, atlas, roi = make_scan(np.random.default_rng(0))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as folder:
+        sub = Path(folder) / "mni01"
+        (sub / "tmp").mkdir(parents=True)
+        save_nii(NiftiImage(image), str(sub / "T1.nii.gz"))
+        save_nii(NiftiImage(atlas),
+                 str(sub / "tmp" / "MNI_sub_probabilities.nii.gz"))
+        save_nii(NiftiImage(roi.astype(np.uint8)),
+                 str(sub / "tmp" / "MNI_subcortical_mask.nii.gz"))
+        options = Options(test_folder=folder, mode="cuda0", use_fcn=False,
+                          post_process=True, crop=True, debug=False,
+                          net_verbose=0)
+        engine = SegmentationEngine(params, options, spec)
+        engine.segment_folder()  # warm-up
+        gather_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        engine.segment_folder()
+        seconds = time.perf_counter() - t0
+        launches = gather_kernel.LAUNCHES
+        t1 = load_nii(str(sub / "T1.nii.gz"))
+        out = load_nii(str(sub / "out_subcortical_seg_prec.nii.gz"))
+    cands = candidate_centers(image, options, roi.astype(np.uint8))
+    n_chunks = math.ceil(len(cands) / DEFAULT_CHUNK)
+    check(out.data.shape == image.shape, "output shape == input shape")
+    check(np.array_equal(out.affine, t1.affine), "output affine == input")
+    check(int((out.data != 0).sum()) > 0, "non-zero labels in the output")
+    check(launches >= n_chunks,
+          f"gather kernel launches {launches} >= chunks {n_chunks}")
+    print(f"main path: {len(cands)} candidates, {n_chunks} chunks, "
+          f"{launches} kernel launches, segment_folder {seconds:.4f} s "
+          f"(warm), {len(cands) / seconds:.1f} candidates/s, "
+          f"{int((out.data != 0).sum())} labelled voxels")
+    # the device part alone: upload, normalize, gather + CNN, readback
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels, _ = segment_volume(engine.net, image, atlas, cands)
+    seg_seconds = time.perf_counter() - t0
+    print(f"segment_volume alone: {seg_seconds:.4f} s, "
+          f"{len(cands) / seg_seconds:.1f} candidates/s")
+
+    # 5. card vs CPU on a sample of the candidates
+    pick = np.sort(np.random.default_rng(1).choice(len(cands), CARD_VS_CPU,
+                                                   replace=False))
+    sample = cands[pick]
+    idx = tuple(sample.T)
+    card_l, card_p = segment_volume(engine.net, image, atlas, sample,
+                                    want_probs=True, probs_dtype=np.float32)
+    cpu_net = TriPlanarNet.from_params(params, spec, "cpu")
+    cpu_l, cpu_p = segment_volume(cpu_net, image, atlas, sample,
+                                  want_probs=True, probs_dtype=np.float32)
+    check(np.array_equal(card_l[idx], labels[idx]),
+          "sampled labels == full-scan labels on the card")
+    check(bool(np.isfinite(card_p[idx]).all()), "finite probabilities")
+    check(bool(np.allclose(card_p[idx].sum(1), 1.0, atol=1e-4)),
+          "probability rows sum to 1")
+    agreement = float(np.mean(card_l[idx] == cpu_l[idx]))
+    prob_err = float(np.abs(card_p[idx] - cpu_p[idx]).max())
+    print(f"card vs CPU: {CARD_VS_CPU} candidates, label agreement "
+          f"{agreement}, max |prob difference| {prob_err:.3e}")
+    check(agreement >= MIN_AGREEMENT,
+          f"card vs CPU label agreement {agreement} >= {MIN_AGREEMENT}")
+
+    # 6. results
+    print(json.dumps({"kernels": [{
+        "name": "gather_triplanar",
+        "route": "cuda",
+        "source": "subcort_tpu_torch/ops/csrc/gather_triplanar.cu",
+        "replaces": "subcort_tpu/ops/pallas_gather.py:176",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,34 @@
+"""subcort_tpu_torch — the PyTorch / CUDA port of subcort_tpu.
+
+Laid out module for module like ``subcort_tpu/``, which stays the
+reference. This package imports torch and never jax; of the JAX package it
+uses only the jax-free ``subcort_tpu.config`` (the shared ``Options``
+contract) and ``subcort_tpu.io`` (NIfTI).
+
+Slice 1 is the patch-engine inference path: ``SegmentationEngine`` /
+``test_scan`` -> ``segment_volume`` -> chunked (tri-planar gather -> CNN ->
+argmax), with the gather a hand-written CUDA kernel for Hopper
+(``ops/csrc/gather_triplanar.cu``). Options outside the slice raise
+``NotImplementedError`` naming their ROADMAP.md item.
+"""
+
+__version__ = "0.1.0"
+
+from subcort_tpu.io import NiftiImage, load_nii, save_nii  # noqa: F401
+from subcort_tpu_torch.config import (Options, load_options,  # noqa: F401
+                                      select_device)
+from subcort_tpu_torch.engine import (  # noqa: F401
+    SegmentationEngine,
+    load_test_names,
+    post_process_segmentation,
+    segment_volume,
+    test_scan,
+)
+from subcort_tpu_torch.models import (  # noqa: F401
+    TriPlanarNet,
+    TriPlanarSpec,
+    init_params,
+    load_theano_checkpoint,
+    num_params,
+    params_from_jax,
+)

@@ -1,0 +1,203 @@
+"""Tri-planar voxelwise CNN in PyTorch, inference mode.
+
+Port of subcort_tpu/models/triplanar.py (``apply`` with ``train=False``);
+architecture per the reference, cnn_cort/nets.py:159-231. Three identical
+2D branches, each on one (N, 1, 32, 32) view:
+
+    conv 3x3 x20 -> BN -> PReLU    (32->30)
+    conv 3x3 x20 -> BN -> PReLU    (30->28)
+    maxpool 2                      (28->14)
+    conv 3x3 x40 -> BN -> PReLU    (14->12)
+    conv 3x3 x40 -> BN -> PReLU    (12->10)
+    maxpool 2                      (10->5)
+    conv 3x3 x60 -> BN -> PReLU    (5->3)
+    dense 540->180 -> PReLU
+
+Head: concat(3x180) -> FC 540->540 -> PReLU -> concat(+15 atlas) ->
+FC 555->270 -> PReLU -> FC 270->15 -> softmax. 883,455 parameters.
+
+Lasagne semantics kept: convs carry no bias (BN follows); BN uses the
+*stored* inv_std, ``(x - mean) * (inv_std * gamma) + beta``; PReLU alpha
+per channel / unit; dropout is the identity at inference. Layout is NCHW
+inside, so the flatten before ``d1`` is already Lasagne's (c, h, w) order.
+Conv weights are OIHW cross-correlation kernels (the importer flips the
+reference's true-convolution kernels).
+
+Parameters are plain state dicts whose keys follow the JAX params tree
+(``axial.conv1.weight``, ``axial.bn1.inv_std``, ``head`` layers at the top
+level); :func:`init_params` makes one, :meth:`TriPlanarNet.from_params`
+loads one onto a device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Params = Dict[str, torch.Tensor]
+
+VIEWS = ("axial", "coronal", "sagittal")
+
+
+@dataclasses.dataclass(frozen=True)
+class TriPlanarSpec:
+    """Static hyper-parameters (reference defaults: nets.py:159-164); a copy
+    of subcort_tpu.models.triplanar.TriPlanarSpec without the TPU-only
+    ``conv_impl`` switch."""
+    patch_size: int = 32
+    num_channels: int = 1
+    conv_filters: tuple = (20, 20, 40, 40, 60)
+    fc_conv: int = 180          # per-branch dense width
+    fc_fc: int = 540            # head FC1 width
+    fc2: int = 270              # head FC2 width
+    num_classes: int = 15
+    atlas_dim: int = 15
+    dropout_conv: float = 0.5
+    dropout_fc: float = 0.5
+    bn_epsilon: float = 1e-4    # Lasagne BatchNormLayer default
+    bn_alpha: float = 1e-2      # Lasagne running-average coefficient
+
+    @property
+    def branch_side(self) -> int:
+        # after two 2x pools and five valid 3x3 convs: 32->30->28->14->12->10->5->3
+        s = self.patch_size
+        s = (s - 2 - 2) // 2
+        s = (s - 2 - 2) // 2
+        s = s - 2
+        if s <= 0:
+            raise ValueError(
+                f"patch_size={self.patch_size} too small for the conv stack "
+                f"(two 2x pools + five valid 3x3 convs need >= 24)")
+        return s
+
+    @property
+    def branch_flat(self) -> int:
+        return self.branch_side ** 2 * self.conv_filters[4]
+
+
+DEFAULT_SPEC = TriPlanarSpec()
+
+
+class _BatchNorm(nn.Module):
+    """Lasagne BatchNormLayer at inference, with the stored inv_std."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.beta = nn.Parameter(torch.zeros(channels, device=device))
+        self.gamma = nn.Parameter(torch.ones(channels, device=device))
+        self.register_buffer("mean", torch.zeros(channels, device=device))
+        self.register_buffer("inv_std", torch.ones(channels, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale = (self.inv_std * self.gamma)[:, None, None]
+        return (x - self.mean[:, None, None]) * scale + self.beta[:, None, None]
+
+
+class _Branch(nn.Module):
+    """One 2D branch: (N, C, ps, ps) -> (N, fc_conv)."""
+
+    def __init__(self, spec: TriPlanarSpec, device=None):
+        super().__init__()
+        c_in = spec.num_channels
+        for i, c_out in enumerate(spec.conv_filters, start=1):
+            setattr(self, f"conv{i}", nn.Conv2d(c_in, c_out, 3, bias=False,
+                                                device=device))
+            setattr(self, f"bn{i}", _BatchNorm(c_out, device=device))
+            setattr(self, f"prelu{i}",
+                    nn.Parameter(torch.full((c_out,), 0.25, device=device)))
+            c_in = c_out
+        self.d1 = nn.Linear(spec.branch_flat, spec.fc_conv, device=device)
+        self.prelu_d1 = nn.Parameter(torch.full((spec.fc_conv,), 0.25,
+                                                device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in (1, 2, 3, 4, 5):
+            x = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x))
+            x = F.prelu(x, getattr(self, f"prelu{i}"))
+            if i in (2, 4):
+                x = F.max_pool2d(x, 2)
+        return F.prelu(self.d1(x.flatten(1)), self.prelu_d1)
+
+
+class TriPlanarNet(nn.Module):
+    """The tri-planar CNN. ``forward`` takes the JAX package's layout: three
+    (N, ps, ps) patch stacks and the (N, 15) atlas prior vectors; it returns
+    softmax probabilities, or logits with ``return_logits``."""
+
+    def __init__(self, spec: TriPlanarSpec = DEFAULT_SPEC, device=None):
+        super().__init__()
+        self.spec = spec
+        for view in VIEWS:
+            setattr(self, view, _Branch(spec, device=device))
+        concat = 3 * spec.fc_conv
+        self.fc1 = nn.Linear(concat, spec.fc_fc, device=device)
+        self.prelu_f1 = nn.Parameter(torch.full((spec.fc_fc,), 0.25,
+                                                device=device))
+        self.fc2 = nn.Linear(spec.fc_fc + spec.atlas_dim, spec.fc2,
+                             device=device)
+        self.prelu_f2 = nn.Parameter(torch.full((spec.fc2,), 0.25,
+                                                device=device))
+        self.out = nn.Linear(spec.fc2, spec.num_classes, device=device)
+
+    @classmethod
+    def from_params(cls, params: Params, spec: TriPlanarSpec = DEFAULT_SPEC,
+                    device: torch.device | str = "cpu") -> "TriPlanarNet":
+        """An inference-mode net on ``device`` holding ``params``. The
+        modules are made on the meta device first, so building a net draws
+        nothing from torch's global random generator."""
+        net = cls(spec, device="meta").to_empty(device=device)
+        net.load_state_dict(params)
+        return net.eval().requires_grad_(False)
+
+    def forward(self, axial: torch.Tensor, coronal: torch.Tensor,
+                sagittal: torch.Tensor, atlas: torch.Tensor,
+                return_logits: bool = False) -> torch.Tensor:
+        fa = self.axial(axial.unsqueeze(1))
+        fc = self.coronal(coronal.unsqueeze(1))
+        fs = self.sagittal(sagittal.unsqueeze(1))
+        x = F.prelu(self.fc1(torch.cat([fa, fc, fs], dim=1)), self.prelu_f1)
+        # the atlas prior joins without dropout (nets.py:222-223)
+        x = torch.cat([x, atlas.to(x.dtype)], dim=1)
+        x = F.prelu(self.fc2(x), self.prelu_f2)
+        logits = self.out(x)
+        if return_logits:
+            return logits
+        return torch.softmax(logits, dim=-1)
+
+
+def init_params(spec: TriPlanarSpec = DEFAULT_SPEC,
+                generator: Optional[torch.Generator] = None) -> Params:
+    """Fresh parameters with Lasagne's default initializers (what
+    ``build_model``, nets.py:127-255, starts from): GlorotUniform for conv
+    and dense weights, zero biases, PReLU alpha 0.25, BN (beta 0, gamma 1,
+    mean 0, inv_std 1). Same shapes as the JAX package's ``init_params``;
+    the numbers differ, because the random streams do."""
+    shapes = TriPlanarNet(spec, device="meta").state_dict()
+    params: Params = {}
+    for key, meta in shapes.items():
+        name = key.rsplit(".", 1)[-1]
+        if name == "weight":
+            # conv OIHW / dense (out, in): Lasagne's fan_in = in * receptive
+            # field, fan_out = out * receptive field
+            receptive = math.prod(meta.shape[2:])
+            fan_in, fan_out = meta.shape[1] * receptive, meta.shape[0] * receptive
+            limit = math.sqrt(6.0 / (fan_in + fan_out))
+            t = torch.empty(meta.shape).uniform_(-limit, limit,
+                                                 generator=generator)
+        elif name.startswith("prelu"):
+            t = torch.full(meta.shape, 0.25)
+        elif name in ("gamma", "inv_std"):
+            t = torch.ones(meta.shape)
+        else:  # bias, beta, mean
+            t = torch.zeros(meta.shape)
+        params[key] = t
+    return params
+
+
+def num_params(params: Params) -> int:
+    return sum(int(t.numel()) for t in params.values())

@@ -1,0 +1,64 @@
+"""Tri-planar patch gather: the plain PyTorch version.
+
+Port of subcort_tpu/ops/patches.py (single volume) and
+subcort_tpu/engine/train.py::gather_triplanar_subjects (subject stack).
+These are the plain versions of the hand-written CUDA kernel in
+``ops/gather_kernel.py``: the CPU path runs them, and the card compares the
+kernel with them.
+
+Semantics (the reference's ``get_patches``, base.py:272-308): a patch for
+center ``c`` spans ``[c - 16, c + 16)`` per axis and is zero outside the
+volume; axial = (x, y) plane at fixed z, coronal = (x, z) at fixed y,
+sagittal = (y, z) at fixed x. With the volume zero-padded by 16 on every
+side, the window for ``c`` starts at padded index ``c``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+PATCH = 32
+HALF = PATCH // 2
+
+Patches = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def pad_volume(vol: torch.Tensor, half: int = HALF) -> torch.Tensor:
+    """Zero-pad a 3D volume by ``half`` on both sides of every axis
+    (padded index = original + half), contiguous."""
+    return F.pad(vol, (half,) * 6).contiguous()
+
+
+def _windows(centers: torch.Tensor, patch: int):
+    c = centers.long()
+    offs = torch.arange(patch, device=c.device)
+    starts = c[:, -3:]
+    xs, ys, zs = (starts[:, k, None] + offs for k in range(3))
+    xc, yc, zc = (starts[:, k] + patch // 2 for k in range(3))
+    return c, xs, ys, zs, xc, yc, zc
+
+
+def gather_triplanar(padded: torch.Tensor, centers: torch.Tensor,
+                     patch: int = PATCH) -> Patches:
+    """(axial, coronal, sagittal), each (N, patch, patch), from a padded
+    (X+2h, Y+2h, Z+2h) volume and (N, 3) centers in original coordinates."""
+    _, xs, ys, zs, xc, yc, zc = _windows(centers, patch)
+    axial = padded[xs[:, :, None], ys[:, None, :], zc[:, None, None]]
+    coronal = padded[xs[:, :, None], yc[:, None, None], zs[:, None, :]]
+    sagittal = padded[xc[:, None, None], ys[:, :, None], zs[:, None, :]]
+    return axial, coronal, sagittal
+
+
+def gather_triplanar_subjects(volumes: torch.Tensor, centers: torch.Tensor,
+                              patch: int = PATCH) -> Patches:
+    """Subject-stack form: ``volumes`` (S, X', Y', Z'), each subject padded
+    by ``patch // 2``; ``centers`` (N, 4) rows (subject, x, y, z)."""
+    c, xs, ys, zs, xc, yc, zc = _windows(centers, patch)
+    sb = c[:, 0, None, None]
+    axial = volumes[sb, xs[:, :, None], ys[:, None, :], zc[:, None, None]]
+    coronal = volumes[sb, xs[:, :, None], yc[:, None, None], zs[:, None, :]]
+    sagittal = volumes[sb, xc[:, None, None], ys[:, :, None], zs[:, None, :]]
+    return axial, coronal, sagittal

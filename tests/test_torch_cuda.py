@@ -1,0 +1,120 @@
+"""Card-only tests of the port's CUDA gather kernel; each skips without a
+CUDA device.
+
+This file imports no jax and uses no conftest fixture, so it runs on a
+machine that has torch and no jax:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+The kernel is held bit-equal (``torch.equal``) to its plain PyTorch version
+on the same card tensors: a gather does no arithmetic.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from subcort_tpu_torch.models import TriPlanarNet, TriPlanarSpec, init_params
+from subcort_tpu_torch.engine import segment_volume
+from subcort_tpu_torch.ops import gather_kernel
+from subcort_tpu_torch.ops.gather_kernel import gather_triplanar_cuda
+from subcort_tpu_torch.ops.patches import (gather_triplanar,
+                                           gather_triplanar_subjects,
+                                           pad_volume)
+
+# the corners of tests/test_pallas_gather.py plus every corner of the volume
+SHAPE = (34, 33, 35)
+CORNERS = [[0, 0, 0], [33, 32, 34], [0, 32, 17], [33, 0, 0]] + [
+    [x, y, z] for x in (0, 33) for y in (0, 32) for z in (0, 34)]
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _single(n, device, seed=0):
+    rng = np.random.default_rng(seed)
+    vol = rng.standard_normal(SHAPE).astype(np.float32)
+    centers = np.stack([rng.integers(0, s, n) for s in SHAPE], 1)
+    centers = np.concatenate([centers, np.asarray(CORNERS)]).astype(np.int32)
+    return (pad_volume(torch.from_numpy(vol).to(device)),
+            torch.from_numpy(centers).to(device))
+
+
+def _assert_equal(got, want):
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.is_contiguous() and g.dtype == torch.float32
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 999, 8192])
+def test_kernel_matches_plain_single_volume(cuda_device, n):
+    """Random centers plus the border corners; N need not be a multiple of
+    16. One launch per call, counted."""
+    padded, centers = _single(n, cuda_device)
+    before = gather_kernel.LAUNCHES
+    got = gather_triplanar_cuda(padded, centers)
+    torch.cuda.synchronize()
+    assert gather_kernel.LAUNCHES == before + 1
+    _assert_equal(got, gather_triplanar(padded, centers))
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_subjects(cuda_device):
+    rng = np.random.default_rng(1)
+    S, shape, n = 3, (40, 36, 28), 777
+    vols = rng.standard_normal((S,) + tuple(s + 32 for s in shape))
+    centers = np.stack([rng.integers(0, S, n)]
+                       + [rng.integers(0, s, n) for s in shape], 1)
+    padded = torch.from_numpy(vols.astype(np.float32)).to(cuda_device)
+    c = torch.from_numpy(centers.astype(np.int32)).to(cuda_device)
+    got = gather_triplanar_cuda(padded, c)
+    torch.cuda.synchronize()
+    _assert_equal(got, gather_triplanar_subjects(padded, c))
+
+
+@pytest.mark.cuda
+def test_kernel_empty_batch_launches_nothing(cuda_device):
+    padded, _ = _single(0, cuda_device)
+    before = gather_kernel.LAUNCHES
+    got = gather_triplanar_cuda(padded, torch.zeros((0, 3), dtype=torch.int32,
+                                                    device=cuda_device))
+    assert gather_kernel.LAUNCHES == before
+    assert all(g.shape == (0, 32, 32) for g in got)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_mixed_devices(cuda_device):
+    padded, centers = _single(4, cuda_device)
+    with pytest.raises(ValueError, match="centers on"):
+        gather_triplanar_cuda(padded, centers.cpu())
+
+
+@pytest.mark.cuda
+def test_segment_volume_card_matches_cpu(cuda_device):
+    """A small phantom through the patch engine on the card and on the CPU
+    (narrow net, TF32 off): labels equal, float32 probs within 1e-5."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    image = (rng.random((36, 40, 32)) * 800 + 100).astype(np.int16)
+    atlas = rng.random((36, 40, 32, 15)).astype(np.float32)
+    atlas /= atlas.sum(-1, keepdims=True)
+    centers = np.stack([rng.integers(0, s, 3000) for s in image.shape], 1)
+    centers = np.unique(centers, axis=0).astype(np.int32)
+    spec = TriPlanarSpec(conv_filters=(8, 8, 8, 8, 8), fc_conv=16, fc_fc=16,
+                         fc2=16)
+    params = init_params(spec, torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        net = TriPlanarNet.from_params(params, spec, dev)
+        out[str(dev)] = segment_volume(net, image, atlas, centers,
+                                       want_probs=True, chunk=1000,
+                                       probs_dtype=np.float32)
+    (cpu_l, cpu_p), (gpu_l, gpu_p) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_allclose(gpu_p, cpu_p, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(gpu_l, cpu_l)
