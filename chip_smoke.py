@@ -8,19 +8,33 @@ and this checkout; imports no jax. Phases, in order; any failure raises
 and the exit code is non-zero:
 
 1. device facts: nvidia-smi name and power limit, torch's device name,
-   the TF32 flags (off: the exact path is full float32);
+   the global TF32 flags (segment_volume turns TF32 off for its own work:
+   the exact path is full float32);
 2. build the gather kernel from ops/csrc/gather_triplanar.cu;
 3. kernel vs plain PyTorch version on the card, bit-equal (torch.equal):
    single volume (MNI 181x217x181, padded) at 8,192 random centers plus the
    8 corners, and a 3-subject stack; times of both at N=8,192 (CUDA events);
-4. the main path: a synthetic MNI-sized subject written as NIfTI, segmented
-   by SegmentationEngine.segment_folder at the model's full width (random
-   weights from a seeded generator); checks the output file and that the
-   gather kernel launched at least once per chunk; seconds of the second
-   (warm) run;
+4. the patch path: a synthetic MNI-sized subject written as NIfTI,
+   segmented by SegmentationEngine.segment_folder with use_fcn=False at the
+   model's full width (random weights from a seeded generator); checks the
+   output file and that the gather kernel launched at least once per
+   chunk; seconds of the second (warm) run;
 5. card vs CPU: 2,048 candidates through the plain CPU path, label
    agreement >= 0.999;
-6. one JSON line of kernel facts, then the last line
+6. the dense path (the default use_fcn=True, uint16 priors): the same
+   subject through segment_folder; checks the output file, that no gather
+   kernel launched and that fcn_forward_slab ran; warm seconds; then
+   warm segment_folder seconds of both engines in bfloat16;
+7. dense vs patch on all candidates (float32 priors and probs): label
+   agreement >= 0.9999; the default uint8 prob map within a step;
+8. dense card vs CPU on the candidates of one 24^3 sub-box: label
+   agreement >= 0.999;
+9. device time of fcn_forward_slab on the pre-staged MNI slab and of the
+   patch engine's forward_centers (CUDA events), with TFLOP/s;
+10. bfloat16 vs float32 on all candidates, both engines, with the
+   segment_volume seconds of all four: label agreement at least the JAX
+   package's own on the same scan and weights, less 0.002;
+11. one JSON line of kernel facts, then the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -28,6 +42,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -40,6 +55,17 @@ N_TIMED = 8192
 SHAPE = (181, 217, 181)
 CARD_VS_CPU = 2048
 MIN_AGREEMENT = 0.999
+MIN_DENSE_VS_PATCH = 0.9999
+SUB_BOX = 24
+# bfloat16 vs float32 label agreement of the JAX package itself on this
+# scan with these weights (the same seeded init bridged to JAX, every
+# candidate, on the CPU). A random-weight net is undecided: its median
+# top-2 probability margin is 0.0015, so bfloat16 rounding flips labels in
+# both packages alike, and more in the patch engine, which argmaxes
+# bfloat16 probabilities. The port may flip no more than the reference
+# does, less BF16_SLACK; 0.999 is the bound for a trained net.
+BF16_REFERENCE = {"fcn": 0.995660533358121, "patch": 0.9666345405889346}
+BF16_SLACK = 0.002
 
 
 def check(cond: bool, what: str) -> None:
@@ -89,9 +115,17 @@ def main() -> None:
     from subcort_tpu_torch import (NiftiImage, Options, SegmentationEngine,
                                    load_nii, save_nii, segment_volume,
                                    select_device)
-    from subcort_tpu_torch.engine.infer import DEFAULT_CHUNK, candidate_centers
-    from subcort_tpu_torch.models import (TriPlanarNet, TriPlanarSpec,
-                                          init_params)
+    from subcort_tpu_torch.config import exact_float32
+    from subcort_tpu_torch.engine.forward import forward_centers
+    from subcort_tpu_torch.engine.infer import (DEFAULT_CHUNK,
+                                                _atlas_vectors_host, _bbox_of,
+                                                _fcn_slab_inputs,
+                                                _normalized_padded,
+                                                candidate_centers,
+                                                net_in_dtype)
+    from subcort_tpu_torch.models import (TriPlanarNet, TriPlanarSpec, fcn,
+                                          init_params, slab_flops)
+    from subcort_tpu_torch.ops.normalize import normalize_stats
     from subcort_tpu_torch.ops import gather_kernel
     from subcort_tpu_torch.ops.gather_kernel import gather_triplanar_cuda
     from subcort_tpu_torch.ops.patches import (gather_triplanar,
@@ -158,11 +192,12 @@ def main() -> None:
           f"({plain_a:.4f}, {plain_b:.4f})")
     del padded, rand, centers, subj
 
-    # 4. the main path, at the model's full width
+    # 4. the patch path, at the model's full width
     spec = TriPlanarSpec()
     params = init_params(spec, torch.Generator().manual_seed(0))
     image, atlas, roi = make_scan(np.random.default_rng(0))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as folder:
+    folder = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
         sub = Path(folder) / "mni01"
         (sub / "tmp").mkdir(parents=True)
         save_nii(NiftiImage(image), str(sub / "T1.nii.gz"))
@@ -170,60 +205,192 @@ def main() -> None:
                  str(sub / "tmp" / "MNI_sub_probabilities.nii.gz"))
         save_nii(NiftiImage(roi.astype(np.uint8)),
                  str(sub / "tmp" / "MNI_subcortical_mask.nii.gz"))
-        options = Options(test_folder=folder, mode="cuda0", use_fcn=False,
-                          post_process=True, crop=True, debug=False,
-                          net_verbose=0)
-        engine = SegmentationEngine(params, options, spec)
-        engine.segment_folder()  # warm-up
-        gather_kernel.LAUNCHES = 0
-        t0 = time.perf_counter()
-        engine.segment_folder()
-        seconds = time.perf_counter() - t0
-        launches = gather_kernel.LAUNCHES
         t1 = load_nii(str(sub / "T1.nii.gz"))
-        out = load_nii(str(sub / "out_subcortical_seg_prec.nii.gz"))
-    cands = candidate_centers(image, options, roi.astype(np.uint8))
-    n_chunks = math.ceil(len(cands) / DEFAULT_CHUNK)
-    check(out.data.shape == image.shape, "output shape == input shape")
-    check(np.array_equal(out.affine, t1.affine), "output affine == input")
-    check(int((out.data != 0).sum()) > 0, "non-zero labels in the output")
-    check(launches >= n_chunks,
-          f"gather kernel launches {launches} >= chunks {n_chunks}")
-    print(f"main path: {len(cands)} candidates, {n_chunks} chunks, "
-          f"{launches} kernel launches, segment_folder {seconds:.4f} s "
-          f"(warm), {len(cands) / seconds:.1f} candidates/s, "
-          f"{int((out.data != 0).sum())} labelled voxels")
-    # the device part alone: upload, normalize, gather + CNN, readback
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    labels, _ = segment_volume(engine.net, image, atlas, cands)
-    seg_seconds = time.perf_counter() - t0
-    print(f"segment_volume alone: {seg_seconds:.4f} s, "
-          f"{len(cands) / seg_seconds:.1f} candidates/s")
+        seg_path = str(sub / "out_subcortical_seg_prec.nii.gz")
 
-    # 5. card vs CPU on a sample of the candidates
-    pick = np.sort(np.random.default_rng(1).choice(len(cands), CARD_VS_CPU,
-                                                   replace=False))
-    sample = cands[pick]
-    idx = tuple(sample.T)
-    card_l, card_p = segment_volume(engine.net, image, atlas, sample,
-                                    want_probs=True, probs_dtype=np.float32)
-    cpu_net = TriPlanarNet.from_params(params, spec, "cpu")
-    cpu_l, cpu_p = segment_volume(cpu_net, image, atlas, sample,
-                                  want_probs=True, probs_dtype=np.float32)
-    check(np.array_equal(card_l[idx], labels[idx]),
-          "sampled labels == full-scan labels on the card")
-    check(bool(np.isfinite(card_p[idx]).all()), "finite probabilities")
-    check(bool(np.allclose(card_p[idx].sum(1), 1.0, atol=1e-4)),
-          "probability rows sum to 1")
-    agreement = float(np.mean(card_l[idx] == cpu_l[idx]))
-    prob_err = float(np.abs(card_p[idx] - cpu_p[idx]).max())
-    print(f"card vs CPU: {CARD_VS_CPU} candidates, label agreement "
-          f"{agreement}, max |prob difference| {prob_err:.3e}")
+        def sweep(**kw):
+            """A warm-up and a timed segment_folder run over the subject;
+            the launch and slab counts start at 0 just before the timed
+            run. Returns (engine, seconds, gather launches, slabs)."""
+            options = Options(test_folder=folder, mode="cuda0",
+                              post_process=True, crop=True, debug=False,
+                              net_verbose=0, **kw)
+            engine = SegmentationEngine(params, options, spec)
+            engine.segment_folder()  # warm-up
+            gather_kernel.LAUNCHES = 0
+            fcn.SLABS = 0
+            t0 = time.perf_counter()
+            engine.segment_folder()
+            seconds = time.perf_counter() - t0
+            return engine, seconds, gather_kernel.LAUNCHES, fcn.SLABS
+
+        def check_output(what: str) -> int:
+            out = load_nii(seg_path)
+            check(out.data.shape == image.shape,
+                  f"{what}: output shape == input shape")
+            check(np.array_equal(out.affine, t1.affine),
+                  f"{what}: output affine == input")
+            labelled = int((out.data != 0).sum())
+            check(labelled > 0, f"{what}: non-zero labels in the output")
+            return labelled
+
+        engine, seconds, launches, _ = sweep(use_fcn=False)
+        labelled = check_output("patch path")
+        cands = candidate_centers(image, engine.options,
+                                  roi.astype(np.uint8))
+        n_chunks = math.ceil(len(cands) / DEFAULT_CHUNK)
+        check(launches >= n_chunks,
+              f"gather kernel launches {launches} >= chunks {n_chunks}")
+        print(f"main path: {len(cands)} candidates, {n_chunks} chunks, "
+              f"{launches} kernel launches, segment_folder {seconds:.4f} s "
+              f"(warm), {len(cands) / seconds:.1f} candidates/s, "
+              f"{labelled} labelled voxels")
+        # the device part alone: upload, normalize, gather + CNN, readback
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels, _ = segment_volume(engine.net, image, atlas, cands,
+                                   engine="patch")
+        seg_seconds = time.perf_counter() - t0
+        print(f"segment_volume alone: {seg_seconds:.4f} s, "
+              f"{len(cands) / seg_seconds:.1f} candidates/s")
+
+        # 5. card vs CPU on a sample of the candidates
+        pick = np.sort(np.random.default_rng(1).choice(
+            len(cands), CARD_VS_CPU, replace=False))
+        sample = cands[pick]
+        idx = tuple(sample.T)
+        card_l, card_p = segment_volume(engine.net, image, atlas, sample,
+                                        want_probs=True, engine="patch",
+                                        probs_dtype=np.float32)
+        cpu_net = TriPlanarNet.from_params(params, spec, "cpu")
+        cpu_l, cpu_p = segment_volume(cpu_net, image, atlas, sample,
+                                      want_probs=True, engine="patch",
+                                      probs_dtype=np.float32)
+        check(np.array_equal(card_l[idx], labels[idx]),
+              "sampled labels == full-scan labels on the card")
+        check(bool(np.isfinite(card_p[idx]).all()), "finite probabilities")
+        check(bool(np.allclose(card_p[idx].sum(1), 1.0, atol=1e-4)),
+              "probability rows sum to 1")
+        agreement = float(np.mean(card_l[idx] == cpu_l[idx]))
+        prob_err = float(np.abs(card_p[idx] - cpu_p[idx]).max())
+        print(f"card vs CPU: {CARD_VS_CPU} candidates, label agreement "
+              f"{agreement}, max |prob difference| {prob_err:.3e}")
+        check(agreement >= MIN_AGREEMENT,
+              f"card vs CPU label agreement {agreement} >= {MIN_AGREEMENT}")
+
+        # 6. the dense path: the default use_fcn=True, uint16 priors
+        dense, seconds, dense_launches, slabs = sweep(use_fcn=True)
+        labelled = check_output("dense path")
+        check(dense_launches == 0,
+              f"dense path: gather kernel launches {dense_launches} == 0")
+        check(slabs >= 1, f"dense path: fcn_forward_slab calls {slabs} >= 1")
+        print(f"dense path: {len(cands)} candidates, {slabs} slab(s), "
+              f"{dense_launches} gather launches, segment_folder "
+              f"{seconds:.4f} s (warm), {len(cands) / seconds:.1f} "
+              f"candidates/s, {labelled} labelled voxels")
+        for use_fcn in (True, False):
+            _, seconds, _, _ = sweep(use_fcn=use_fcn,
+                                     compute_dtype="bfloat16")
+            check_output(f"bfloat16 {'dense' if use_fcn else 'patch'}")
+            print(f"bfloat16 {'dense' if use_fcn else 'patch'} path: "
+                  f"segment_folder {seconds:.4f} s (warm), "
+                  f"{len(cands) / seconds:.1f} candidates/s")
+    finally:
+        shutil.rmtree(folder)
+    sel = tuple(cands.T)
+    net = dense.net
+
+    # 7. dense vs patch on every candidate
+    f32 = dict(want_probs=True, prior_dtype=np.float32,
+               probs_dtype=np.float32)
+    dl, dp = segment_volume(net, image, atlas, cands, engine="fcn", **f32)
+    pl, pp = segment_volume(net, image, atlas, cands, engine="patch", **f32)
+    agreement = float(np.mean(dl[sel] == pl[sel]))
+    print(f"dense vs patch: {len(cands)} candidates, label agreement "
+          f"{agreement}, {int((dl[sel] != pl[sel]).sum())} mismatches, "
+          f"max |prob difference| {np.abs(dp[sel] - pp[sel]).max():.3e}")
+    check(agreement >= MIN_DENSE_VS_PATCH,
+          f"dense vs patch label agreement {agreement} >= "
+          f"{MIN_DENSE_VS_PATCH}")
+    ql, qp = segment_volume(net, image, atlas, cands, engine="fcn",
+                            want_probs=True)
+    q_agree = float(np.mean(ql[sel] == dl[sel]))
+    q_err = float(np.abs(qp[sel] - dp[sel]).max())
+    print(f"dense, uint16 priors + uint8 probs vs float32: label agreement "
+          f"{q_agree}, max |prob difference| {q_err:.3e}")
+    check(q_err <= 1.0 / 255 + 1e-4, f"uint8 prob map within a step "
+          f"({q_err:.3e})")
+    check(q_agree >= MIN_AGREEMENT, f"uint16 prior label agreement "
+          f"{q_agree} >= {MIN_AGREEMENT}")
+    del dp, pp, qp
+
+    # 8. dense card vs CPU on one sub-box of the candidates' bbox
+    lo, dims = _bbox_of(cands, image.shape)
+    box_lo = lo + np.array([dims[0] // 2 - SUB_BOX // 2,
+                            dims[1] // 2 - SUB_BOX // 2, 0])
+    inside = np.all((cands >= box_lo) & (cands < box_lo + SUB_BOX), axis=1)
+    box = cands[inside]
+    bsel = tuple(box.T)
+    check(len(box) > 0, "candidates in the sub-box")
+    card_l, card_p = segment_volume(net, image, atlas, box, engine="fcn",
+                                    **f32)
+    cpu_l, cpu_p = segment_volume(cpu_net, image, atlas, box, engine="fcn",
+                                  **f32)
+    agreement = float(np.mean(card_l[bsel] == cpu_l[bsel]))
+    print(f"dense card vs CPU: {len(box)} candidates in a {SUB_BOX}^3 "
+          f"sub-box at {box_lo.tolist()}, label agreement {agreement}, "
+          f"max |prob difference| "
+          f"{np.abs(card_p[bsel] - cpu_p[bsel]).max():.3e}")
     check(agreement >= MIN_AGREEMENT,
-          f"card vs CPU label agreement {agreement} >= {MIN_AGREEMENT}")
+          f"dense card vs CPU label agreement {agreement} >= "
+          f"{MIN_AGREEMENT}")
 
-    # 6. results
+    # 9. device time on pre-staged inputs (CUDA events)
+    slab, vecs, cs, lin, norm = _fcn_slab_inputs(
+        image, normalize_stats(image), atlas, lo, dims, image.shape,
+        np.uint16, cands)
+    staged = (torch.from_numpy(slab).to(device),
+              torch.from_numpy(vecs).to(device))
+    staged_norm = (torch.from_numpy(norm[0]).to(device),) + norm[1:]
+    staged_idx = torch.from_numpy(lin).to(device)
+    flops = slab_flops(dims, len(cs))
+    for name in ("float32", "bfloat16"):
+        timed_net = net_in_dtype(net, name)
+        with exact_float32():
+            ms = time_ms(torch, lambda: fcn.fcn_forward_slab(
+                timed_net, *staged, gather_idx=staged_idx, norm=staged_norm),
+                iters=10)
+        print(f"fcn_forward_slab {name}: bbox {dims}, {len(cs)} rows, "
+              f"{ms:.3f} ms, {flops / 1e12:.4f} TFLOP, "
+              f"{flops / ms / 1e9:.2f} TFLOP/s")
+    padded = _normalized_padded(image, device)
+    c_d = torch.from_numpy(cands).to(device)
+    v_d = torch.from_numpy(_atlas_vectors_host(atlas, cands)).to(device)
+    with exact_float32():
+        ms = time_ms(torch, lambda: forward_centers(
+            net, padded, c_d, v_d, DEFAULT_CHUNK, False), iters=3)
+    print(f"forward_centers float32: {len(cands)} centers, {ms:.3f} ms")
+    del staged, staged_idx, padded, c_d, v_d
+
+    # 10. bfloat16 vs float32 on every candidate, both engines
+    for eng in ("fcn", "patch"):
+        out = {}
+        for dt in ("float32", "bfloat16", "float32", "bfloat16"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[dt] = segment_volume(net, image, atlas, cands, engine=eng,
+                                     compute_dtype=dt)[0]
+            out[dt + "_s"] = time.perf_counter() - t0
+        agreement = float(np.mean(out["float32"][sel] == out["bfloat16"][sel]))
+        floor = BF16_REFERENCE[eng] - BF16_SLACK
+        print(f"bfloat16 vs float32, {eng}: label agreement {agreement} "
+              f"(JAX package {BF16_REFERENCE[eng]}), segment_volume "
+              f"{out['float32_s']:.4f} s float32, {out['bfloat16_s']:.4f} s "
+              f"bfloat16 (warm)")
+        check(agreement >= floor, f"bfloat16 vs float32 label agreement, "
+              f"{eng}: {agreement} >= {floor}")
+
+    # 11. results
     print(json.dumps({"kernels": [{
         "name": "gather_triplanar",
         "route": "cuda",

@@ -5,10 +5,12 @@ reference. This package imports torch and never jax; of the JAX package it
 uses only the jax-free ``subcort_tpu.config`` (the shared ``Options``
 contract) and ``subcort_tpu.io`` (NIfTI).
 
-Slice 1 is the patch-engine inference path: ``SegmentationEngine`` /
-``test_scan`` -> ``segment_volume`` -> chunked (tri-planar gather -> CNN ->
-argmax), with the gather a hand-written CUDA kernel for Hopper
-(``ops/csrc/gather_triplanar.cu``). Options outside the slice raise
+Ported so far: the inference path. ``SegmentationEngine`` / ``test_scan``
+-> ``segment_volume`` -> the dense à-trous evaluator (``engine="fcn"``,
+what ``"auto"`` picks for a dense candidate set) or the patch engine
+(chunked tri-planar gather -> CNN -> argmax, the gather a hand-written
+CUDA kernel for Hopper, ``ops/csrc/gather_triplanar.cu``), in float32 or
+bfloat16. Options outside the ported slices raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 

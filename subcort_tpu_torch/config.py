@@ -11,6 +11,7 @@ is the backend mapping of the reference's ``mode`` key
 
 from __future__ import annotations
 
+import contextlib
 import re
 
 import torch
@@ -32,12 +33,9 @@ def select_device(options: Options) -> torch.device:
 
     ``cpu*`` -> CPU; ``cudaN`` / ``gpuN`` -> ``cuda:N``; ``gpu``, ``tpu`` and
     anything else -> ``cuda:0``. A CUDA device that is asked for and absent
-    raises: the port never falls back to the CPU.
-
-    On CUDA this also pins full float32 convolutions and matmuls (TF32
-    off): cuDNN runs float32 convolutions in TF32 by default, while the
-    reference's exact path is full float32 (subcort_tpu/models/triplanar.py
-    ``Precision.HIGHEST``).
+    raises: the port never falls back to the CPU. The TF32 flags are left
+    alone: ``segment_volume`` turns TF32 off for its own device work
+    (:func:`exact_float32`).
     """
     mode = str(options.mode).strip().lower()
     if mode.startswith("cpu"):
@@ -52,6 +50,23 @@ def select_device(options: Options) -> torch.device:
         raise RuntimeError(
             f"mode={options.mode!r} asks for cuda:{index}, but only "
             f"{torch.cuda.device_count()} CUDA device(s) are present")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", index)
+
+
+@contextlib.contextmanager
+def exact_float32():
+    """Full float32 convolutions and matmuls (TF32 off) inside the block;
+    the caller's flags come back afterwards.
+
+    cuDNN runs float32 convolutions in TF32 by default
+    (``torch.backends.cudnn.allow_tf32 = True``), a 10-bit mantissa, while
+    the reference's exact path is full float32
+    (subcort_tpu/models/triplanar.py ``Precision.HIGHEST``).
+    """
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved

@@ -25,10 +25,14 @@ def forward_centers(net: TriPlanarNet, padded: torch.Tensor,
 
     ``padded``, ``centers`` and ``atlas_vecs`` (N, 15) float32 live on the
     net's device; the gather is the CUDA kernel there, its plain version on
-    the CPU. Returns ((N,) uint8 labels, (N, C) probs in ``probs_dtype`` or
-    None). uint8 probs are ``round(p * 255)``, quantized once after the loop
-    as the JAX version does (forward.py:86-87).
+    the CPU. The gather stays float32 whatever the net's dtype (it does no
+    arithmetic); the patches are cast to the net's dtype after it, as the
+    JAX Pallas branch does (forward.py:59-70), and the head casts the
+    priors. Returns ((N,) uint8 labels, (N, C) probs in ``probs_dtype`` or
+    None). uint8 probs are ``round(p * 255)``, quantized once after the
+    loop as the JAX version does (forward.py:86-87).
     """
+    dtype = next(net.parameters()).dtype
     n = int(centers.shape[0])
     labels = torch.empty(n, dtype=torch.uint8, device=padded.device)
     probs = None
@@ -38,7 +42,8 @@ def forward_centers(net: TriPlanarNet, padded: torch.Tensor,
                             device=padded.device)
     for start in range(0, n, chunk):
         stop = min(start + chunk, n)
-        ax, co, sa = gather_triplanar_cuda(padded, centers[start:stop])
+        ax, co, sa = (v.to(dtype) for v in
+                      gather_triplanar_cuda(padded, centers[start:stop]))
         p = net(ax, co, sa, atlas_vecs[start:stop])
         labels[start:stop] = p.argmax(dim=1)
         if want_probs:

@@ -1,24 +1,31 @@
-"""Per-scan inference engine, patch path (port of subcort_tpu/engine/infer.py).
+"""Per-scan inference engine (port of subcort_tpu/engine/infer.py).
 
 Reference counterpart: ``test_scan`` + ``load_patch_batch``
-(cnn_cort/base.py:335-458). A scan is segmented by uploading the raw
-volume, normalizing and padding it on the device, and running the chunked
-patch engine (:func:`subcort_tpu_torch.engine.forward.forward_centers`:
-the CUDA tri-planar gather kernel, then the CNN, then argmax) over the
-candidate voxels. Prior vectors are gathered on the host and results
-scattered on the host.
+(cnn_cort/base.py:335-458). A scan is segmented on the device by one of
+two engines over the candidate voxels, with prior vectors gathered on the
+host and results scattered on the host:
 
-What this slice runs, and what it refuses:
+- the dense path (``engine="fcn"``): the candidate bbox plus its patch
+  context is cut from the raw scan on the host, normalized on the device,
+  and run through the à-trous tri-planar convs, then the head MLP at the
+  candidate voxels (:func:`subcort_tpu_torch.models.fcn.fcn_forward_slab`);
+- the patch path (``engine="patch"``): the normalized, padded volume on the
+  device and chunks of (the CUDA tri-planar gather kernel -> CNN -> argmax)
+  (:func:`subcort_tpu_torch.engine.forward.forward_centers`).
 
-- ``engine="patch"`` runs. ``engine="auto"`` (the default,
-  ``use_fcn=True``) also resolves to the patch engine here: the JAX
-  package's invariant makes its dense evaluator and patch engine
-  label-identical (tests/test_engine.py::
-  test_segment_volume_fcn_matches_patch_engine), so only the speed
-  differs. ``engine="fcn"`` raises until the dense evaluator is ported.
-- ``compute_dtype=bfloat16``, ``data_parallel>1``, ``folder_pipeline=True``
-  and ``cc_backend=device`` raise :class:`NotImplementedError` naming the
-  ROADMAP.md item; nothing is rerouted silently.
+``engine="auto"`` (the default; ``use_fcn = True``) picks the dense path
+unless the candidate bbox holds more than 30 voxels per candidate, as the
+JAX package does. The two engines agree on labels
+(tests/test_torch_fcn.py). ``compute_dtype = bfloat16`` runs either engine
+on a bfloat16 copy of the net. ``data_parallel>1``, ``folder_pipeline=True``
+and ``cc_backend=device`` raise :class:`NotImplementedError` naming the
+ROADMAP.md item; nothing is rerouted silently.
+
+Left out of the JAX dense host path, which shaped it for a TPU behind a
+slow link: the packed-bitmask candidate wire, compacted prior rows, the
+power-of-two shape ladder, the 6 MB slab-split gate and the multi-device
+fan-out. The port ships the raw slab, int64 candidate indices and every
+candidate's prior row, and runs sub-bboxes serially.
 
 Output contract as the reference's (base.py:445-455):
 ``out_subcortical_prob.nii.gz`` (with out_probabilities; values in 1/255
@@ -29,6 +36,7 @@ steps by default, ``probs_dtype = float32`` for exact ones),
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from typing import Optional, Tuple
@@ -38,10 +46,12 @@ import torch
 from scipy import ndimage
 
 from subcort_tpu.io import NiftiImage, load_nii, save_nii
-from subcort_tpu_torch.config import Options, not_ported, select_device
+from subcort_tpu_torch.config import (Options, exact_float32, not_ported,
+                                      select_device)
 from subcort_tpu_torch.engine.forward import forward_centers
 from subcort_tpu_torch.engine.metrics import ScanStats
 from subcort_tpu_torch.engine.postprocess import post_process_segmentation
+from subcort_tpu_torch.models.fcn import HALF, RF, fcn_forward_slab
 from subcort_tpu_torch.models.triplanar import (DEFAULT_SPEC, Params,
                                                 TriPlanarNet, TriPlanarSpec)
 from subcort_tpu_torch.ops.normalize import normalize_stats
@@ -53,8 +63,6 @@ DEFAULT_CHUNK = 8192
 
 def check_slice_options(options: Options) -> None:
     """Raise for every option this slice of the port does not run."""
-    if str(options["compute_dtype"]).lower() in ("bfloat16", "bf16"):
-        raise not_ported("compute_dtype=bfloat16", "item 3, bf16")
     if int(options["data_parallel"]) > 1:
         raise not_ported("data_parallel>1", "item 9, multi-GPU")
     if options.bool("folder_pipeline"):
@@ -63,6 +71,18 @@ def check_slice_options(options: Options) -> None:
     if options["cc_backend"] == "device":
         raise not_ported("cc_backend='device' (on-device connected "
                          "components)", "item 8, device CC")
+
+
+def net_in_dtype(net: TriPlanarNet, compute_dtype: str) -> TriPlanarNet:
+    """``net`` itself, or a copy cast to ``compute_dtype`` ("bfloat16" /
+    "bf16", else float32). The cast takes every parameter and buffer, BN
+    mean/inv_std and PReLU alphas included, as the JAX package's
+    ``tree_map`` does (infer.py:499-505)."""
+    dtype = (torch.bfloat16 if compute_dtype in ("bfloat16", "bf16")
+             else torch.float32)
+    if next(net.parameters()).dtype == dtype:
+        return net
+    return copy.deepcopy(net).to(dtype)
 
 
 def load_test_names(options: Options) -> Tuple[list, list]:
@@ -94,11 +114,172 @@ def _atlas_vectors_host(atlas: np.ndarray, centers: np.ndarray) -> np.ndarray:
     return vecs
 
 
+def _bbox_of(centers: np.ndarray, shape, align: int = 16):
+    """Tight bbox of the candidate set, dims rounded up to ``align`` and
+    clamped inside the volume (copy of infer.py:124-133)."""
+    lo = centers.min(axis=0)
+    hi = centers.max(axis=0) + 1
+    dims = hi - lo
+    dims = np.minimum(-(-dims // align) * align, np.asarray(shape))
+    lo = np.minimum(lo, np.asarray(shape) - dims)
+    lo = np.maximum(lo, 0)
+    return lo.astype(np.int32), tuple(int(d) for d in dims)
+
+
+def _split_bbox(lo, dims, max_voxels: int):
+    """Split a bbox along its largest axis into sub-bboxes of at most
+    ``max_voxels`` each (copy of infer.py:136-151)."""
+    if int(np.prod(dims)) <= max_voxels:
+        yield np.asarray(lo, np.int32), tuple(int(d) for d in dims)
+        return
+    axis = int(np.argmax(dims))
+    n_parts = -(-int(np.prod(dims)) // max_voxels)
+    step = -(-dims[axis] // n_parts)
+    for start in range(0, dims[axis], step):
+        sub_lo = np.asarray(lo, np.int32).copy()
+        sub_lo[axis] += start
+        sub_dims = list(dims)
+        sub_dims[axis] = min(step, dims[axis] - start)
+        yield from _split_bbox(sub_lo, tuple(sub_dims), max_voxels)
+
+
+def _quantize_priors(vecs: np.ndarray, prior_dtype) -> np.ndarray:
+    """Prior rows in the ``prior_dtype`` the device dequantizes
+    (copy of infer.py:154-165): uint8 and uint16 are 1/255 and 1/65535
+    fixed point; other dtypes a plain cast."""
+    if np.dtype(prior_dtype) == np.uint8:
+        return np.round(vecs * 255.0).astype(np.uint8)
+    if np.dtype(prior_dtype) == np.uint16:
+        return np.round(vecs * 65535.0).astype(np.uint16)
+    return vecs.astype(prior_dtype)
+
+
+def _fcn_slab_inputs(image, stats, atlas, lo, dims, shape, prior_dtype,
+                     centers=None):
+    """Host prep for one sub-bbox (infer.py:210-334). ``image`` is the RAW
+    volume and ``stats`` its nonzero (mean, std).
+
+    Returns (slab, prior rows in ``prior_dtype``, cs, lin, norm). Sparse
+    mode, when the candidates do not fill the bbox: cs = the candidates
+    inside it, in the caller's order (duplicates kept), and lin their int64
+    linear bbox indices (C order); the prior rows are cs's. Dense mode
+    (``centers=None`` or a full bbox): a prior row for every bbox voxel in
+    C order, cs and lin None. With no candidate inside, slab is None.
+
+    Narrow-integer scans (the usual int16 T1) keep the slab raw and
+    ``norm = (scale (2,) float32, lo (3,), hi (3,))`` has the device
+    normalize it and zero the voxels outside ``[lo, hi)``, bit-exact with
+    the host path. Other scans normalize on the host; ``norm`` is None.
+    """
+    bx, by, bz = dims
+    mean, std = stats
+    # slab axis i covers [lo-HALF, lo+dim+HALF-1]; outside-volume voxels
+    # stay 0.0 in normalized space (pad_volume's convention)
+    raw_wire = image.dtype.kind in "iu" and image.dtype.itemsize <= 2
+    slab = np.zeros((bx + RF, by + RF, bz + RF),
+                    image.dtype if raw_wire else np.float32)
+    src, dst = [], []
+    for l, d, s in zip(lo, dims, shape):
+        a = min(max(int(l) - HALF, 0), s)
+        b = max(min(int(l) + d + HALF - 1, s), a)
+        ds = a - (int(l) - HALF)
+        if ds < 0:
+            # a sub-bbox starting more than HALF past the volume end has no
+            # overlap; a negative dst start would wrap around numpy's
+            # negative indices into a non-empty slice
+            a = b = s
+            ds = 0
+        src.append(slice(a, b))
+        dst.append(slice(ds, ds + (b - a)))
+    if raw_wire:
+        slab[tuple(dst)] = image[tuple(src)]
+        norm = (np.array([mean, 1.0 / std], np.float32),
+                tuple(s.start for s in dst), tuple(s.stop for s in dst))
+    else:
+        slab[tuple(dst)] = ((image[tuple(src)].astype(np.float32)
+                             - np.float32(mean)) * np.float32(1.0 / std))
+        norm = None
+
+    if centers is not None:
+        inside = np.all((centers >= lo) & (centers < lo + np.asarray(dims)),
+                        axis=1)
+        cs = centers[inside]
+        if len(cs) == 0:
+            return None, None, cs, None, None  # nothing to classify here
+        if len(cs) < bx * by * bz:
+            # explicit indices keep the results aligned with cs, in any
+            # order and with duplicates
+            rel = cs.astype(np.int64) - np.asarray(lo)[None, :]
+            lin = (rel[:, 0] * by + rel[:, 1]) * bz + rel[:, 2]
+            vecs = _quantize_priors(_atlas_vectors_host(atlas, cs),
+                                    prior_dtype)
+            return slab, vecs, cs, lin, norm
+        # the candidates fill the bbox: the dense head needs no gather
+
+    # prior rows for every bbox voxel, C order over (x, y, z): the bbox is
+    # clamped inside the volume, so this is one block slice
+    vecs = atlas[lo[0]:lo[0] + bx, lo[1]:lo[1] + by,
+                 lo[2]:lo[2] + bz].reshape(-1, atlas.shape[-1]).astype(
+                     np.float32, copy=True)
+    empty = vecs.sum(axis=1) == 0
+    vecs[empty] = 0.0
+    vecs[empty, 14] = 1.0
+    return slab, _quantize_priors(vecs, prior_dtype), None, None, norm
+
+
 def _dequantize_probs(probs_b) -> np.ndarray:
     probs_b = np.asarray(probs_b)
     if probs_b.dtype == np.uint8:
         return probs_b.astype(np.float32) * np.float32(1.0 / 255.0)
     return probs_b
+
+
+def _fcn_scatter_results(labels_b, probs_b, lo, dims, centers, cs,
+                         label_vol, prob_vol, want_probs):
+    """One slab's results into the volumes (infer.py:344-364)."""
+    if cs is not None:
+        # sparse mode: results are aligned with cs
+        label_vol[cs[:, 0], cs[:, 1], cs[:, 2]] = labels_b
+        if want_probs:
+            prob_vol[cs[:, 0], cs[:, 1], cs[:, 2]] = _dequantize_probs(probs_b)
+        return
+    bx, by, bz = dims
+    inside = np.all((centers >= lo) & (centers < lo + np.asarray(dims)), axis=1)
+    cs = centers[inside]
+    rel = cs - np.asarray(lo)[None, :]
+    label_vol[cs[:, 0], cs[:, 1], cs[:, 2]] = \
+        labels_b[rel[:, 0], rel[:, 1], rel[:, 2]]
+    if want_probs:
+        probs_b = _dequantize_probs(probs_b).reshape(bx, by, bz, -1)
+        prob_vol[cs[:, 0], cs[:, 1], cs[:, 2]] = \
+            probs_b[rel[:, 0], rel[:, 1], rel[:, 2]]
+
+
+def _fcn_run_bboxes(net, image, atlas, bboxes, centers, label_vol, prob_vol,
+                    want_probs, prior_dtype, probs_dtype, device):
+    """The dense evaluator over the sub-bboxes, one after another
+    (infer.py:367-452 on a single device)."""
+    stats = normalize_stats(image)
+    shape = image.shape
+
+    def to_device(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(device)
+
+    for lo, dims in bboxes:
+        slab, vecs, cs, lin, norm = _fcn_slab_inputs(
+            image, stats, atlas, lo, dims, shape, prior_dtype, centers)
+        if slab is None:
+            continue  # no candidates in this sub-bbox
+        if norm is not None:
+            norm = (to_device(norm[0]),) + norm[1:]
+        labels_b, probs_b = fcn_forward_slab(
+            net, to_device(slab), to_device(vecs), want_probs,
+            probs_dtype=getattr(torch, np.dtype(probs_dtype).name),
+            gather_idx=None if lin is None else to_device(lin), norm=norm)
+        _fcn_scatter_results(
+            labels_b.cpu().numpy(),
+            probs_b.cpu().numpy() if want_probs else None, lo, dims,
+            centers, cs, label_vol, prob_vol, want_probs)
 
 
 def _normalized_padded(image: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -125,43 +306,60 @@ def _normalized_padded(image: np.ndarray, device: torch.device) -> torch.Tensor:
 def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
                    centers: np.ndarray, *, want_probs: bool = False,
                    chunk: int = DEFAULT_CHUNK, engine: str = "auto",
-                   probs_dtype=np.uint8, compute_dtype: str = "float32",
+                   fcn_max_bbox_voxels: int = 6_000_000,
+                   prior_dtype=np.uint16, probs_dtype=np.uint8,
+                   compute_dtype: str = "float32",
                    device: Optional[torch.device] = None):
     """Segment one raw T1 volume at ``centers`` (N, 3).
 
     Returns (label_vol uint8, prob_vol float32 or None) as numpy arrays.
-    ``device`` defaults to the net's. ``engine`` "auto" and "patch" run the
-    patch engine (see the module docstring); "fcn" raises.
+    ``device`` defaults to the net's. ``engine``: "fcn" (dense, with
+    oversized bboxes split into sub-slabs of at most
+    ``fcn_max_bbox_voxels``), "patch", or "auto", which picks "fcn" unless
+    the bbox exceeds 30x the candidate count (infer.py:517-523).
+    ``prior_dtype`` is the dense path's prior fixed point; the patch path
+    takes float32 rows, as in JAX. The device work runs with TF32 off
+    (:func:`~subcort_tpu_torch.config.exact_float32`).
     """
-    if engine == "fcn":
-        raise not_ported("engine='fcn' (the dense a-trous evaluator)",
-                         "item 2, dense evaluator")
-    if engine not in ("auto", "patch"):
+    if engine not in ("auto", "fcn", "patch"):
         raise ValueError(f"unknown engine {engine!r}")
-    if str(compute_dtype).lower() in ("bfloat16", "bf16"):
-        raise not_ported("compute_dtype=bfloat16", "item 3, bf16")
     if device is None:
         device = next(net.parameters()).device
     image = np.asarray(image)
     shape = tuple(int(s) for s in image.shape)
     centers = np.asarray(centers, np.int32).reshape(-1, 3)
     n = centers.shape[0]
+    atlas = np.asarray(atlas, np.float32)
+    if not want_probs:
+        probs_dtype = np.uint8  # dead without probs (infer.py:492-498)
+    net = net_in_dtype(net, compute_dtype)
     label_vol = np.zeros(shape, np.uint8)
     prob_vol = np.zeros(shape + (15,), np.float32) if want_probs else None
     if n == 0:
         # the reference's batch generator yields zero batches: all-zero
         # outputs (base.py:379-380,414-417)
         return label_vol, prob_vol
-    # the kernel does not clamp: out-of-volume centers stop here
+    # the gather kernel does not clamp: out-of-volume centers stop here
     if centers.min() < 0 or (centers >= np.asarray(shape)).any():
         raise ValueError(f"centers outside the volume of shape {shape}")
 
-    padded = _normalized_padded(image, device)
-    vecs = _atlas_vectors_host(np.asarray(atlas, np.float32), centers)
-    labels, probs = forward_centers(
-        net, padded, torch.from_numpy(centers).to(device),
-        torch.from_numpy(vecs).to(device), chunk, want_probs,
-        probs_dtype=getattr(torch, np.dtype(probs_dtype).name))
+    lo, dims = _bbox_of(centers, shape)
+    if engine == "auto":
+        engine = "fcn" if int(np.prod(dims)) <= 30 * n else "patch"
+    with exact_float32():
+        if engine == "fcn":
+            _fcn_run_bboxes(net, image, atlas,
+                            _split_bbox(lo, dims, fcn_max_bbox_voxels),
+                            centers, label_vol, prob_vol, want_probs,
+                            prior_dtype, probs_dtype, device)
+            return label_vol, prob_vol
+
+        padded = _normalized_padded(image, device)
+        vecs = _atlas_vectors_host(atlas, centers)
+        labels, probs = forward_centers(
+            net, padded, torch.from_numpy(centers).to(device),
+            torch.from_numpy(vecs).to(device), chunk, want_probs,
+            probs_dtype=getattr(torch, np.dtype(probs_dtype).name))
     label_vol[centers[:, 0], centers[:, 1], centers[:, 2]] = labels.cpu().numpy()
     if want_probs:
         prob_vol[centers[:, 0], centers[:, 1], centers[:, 2]] = \
@@ -213,6 +411,8 @@ def test_scan(net: TriPlanarNet, scan_path: str, options: Options,
     label_vol, prob_vol = segment_volume(
         net, image, atlas, centers, want_probs=want_probs, chunk=chunk,
         engine="auto" if options.bool("use_fcn") else "patch",
+        fcn_max_bbox_voxels=options["fcn_max_bbox_voxels"],
+        prior_dtype=np.dtype(options["prior_dtype"]),
         probs_dtype=np.dtype(options["probs_dtype"]),
         compute_dtype=options["compute_dtype"], device=device)
 
@@ -247,7 +447,8 @@ class SegmentationEngine:
     ``params`` is a state dict (:func:`~subcort_tpu_torch.models.init_params`,
     :func:`~subcort_tpu_torch.models.load_theano_checkpoint` or
     :func:`~subcort_tpu_torch.models.params_from_jax`); the device comes
-    from ``options.mode`` (:func:`~subcort_tpu_torch.config.select_device`).
+    from ``options.mode`` (:func:`~subcort_tpu_torch.config.select_device`),
+    and the net is held in ``options.compute_dtype``.
     """
 
     def __init__(self, params: Params, options: Options,
@@ -255,7 +456,9 @@ class SegmentationEngine:
         check_slice_options(options)
         self.options = options
         self.device = select_device(options)
-        self.net = TriPlanarNet.from_params(params, spec, self.device)
+        self.net = net_in_dtype(
+            TriPlanarNet.from_params(params, spec, self.device),
+            options["compute_dtype"])
         self.register_fn = register_fn
 
     def segment_scan(self, scan_path: str) -> float:

@@ -1,5 +1,12 @@
-"""The tri-planar CNN and its checkpoint importers."""
+"""The tri-planar CNN, its dense (à-trous) evaluator and its checkpoint
+importers."""
 
+from subcort_tpu_torch.models.fcn import (  # noqa: F401
+    dense_branch_features,
+    fcn_forward_bbox,
+    fcn_forward_slab,
+    slab_flops,
+)
 from subcort_tpu_torch.models.importer import (  # noqa: F401
     load_theano_checkpoint,
     params_from_jax,

@@ -160,14 +160,20 @@ class TriPlanarNet(nn.Module):
         fa = self.axial(axial.unsqueeze(1))
         fc = self.coronal(coronal.unsqueeze(1))
         fs = self.sagittal(sagittal.unsqueeze(1))
-        x = F.prelu(self.fc1(torch.cat([fa, fc, fs], dim=1)), self.prelu_f1)
-        # the atlas prior joins without dropout (nets.py:222-223)
-        x = torch.cat([x, atlas.to(x.dtype)], dim=1)
-        x = F.prelu(self.fc2(x), self.prelu_f2)
-        logits = self.out(x)
+        logits = self.head(torch.cat([fa, fc, fs], dim=1), atlas)
         if return_logits:
             return logits
         return torch.softmax(logits, dim=-1)
+
+    def head(self, features: torch.Tensor, atlas: torch.Tensor) -> torch.Tensor:
+        """Logits from the (N, 3 * fc_conv) branch features, concatenated
+        axial, coronal, sagittal, and the (N, 15) atlas prior vectors; the
+        dense evaluator shares it (models/fcn.py)."""
+        x = F.prelu(self.fc1(features), self.prelu_f1)
+        # the atlas prior joins without dropout (nets.py:222-223)
+        x = torch.cat([x, atlas.to(x.dtype)], dim=1)
+        x = F.prelu(self.fc2(x), self.prelu_f2)
+        return self.out(x)
 
 
 def init_params(spec: TriPlanarSpec = DEFAULT_SPEC,

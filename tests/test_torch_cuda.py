@@ -1,5 +1,5 @@
-"""Card-only tests of the port's CUDA gather kernel; each skips without a
-CUDA device.
+"""Card-only tests of the port: its CUDA gather kernel, and the engines on
+the card against the CPU; each skips without a CUDA device.
 
 This file imports no jax and uses no conftest fixture, so it runs on a
 machine that has torch and no jax:
@@ -7,7 +7,8 @@ machine that has torch and no jax:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 The kernel is held bit-equal (``torch.equal``) to its plain PyTorch version
-on the same card tensors: a gather does no arithmetic.
+on the same card tensors: a gather does no arithmetic. The engines run
+float32 with TF32 off whatever the caller's global flags say.
 """
 
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 
 from subcort_tpu_torch.models import TriPlanarNet, TriPlanarSpec, init_params
 from subcort_tpu_torch.engine import segment_volume
+from subcort_tpu_torch.models import fcn
 from subcort_tpu_torch.ops import gather_kernel
 from subcort_tpu_torch.ops.gather_kernel import gather_triplanar_cuda
 from subcort_tpu_torch.ops.patches import (gather_triplanar,
@@ -94,27 +96,80 @@ def test_kernel_refuses_mixed_devices(cuda_device):
         gather_triplanar_cuda(padded, centers.cpu())
 
 
-@pytest.mark.cuda
-def test_segment_volume_card_matches_cpu(cuda_device):
-    """A small phantom through the patch engine on the card and on the CPU
-    (narrow net, TF32 off): labels equal, float32 probs within 1e-5."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(2)
+def _scan(seed=2, n=3000):
+    rng = np.random.default_rng(seed)
     image = (rng.random((36, 40, 32)) * 800 + 100).astype(np.int16)
     atlas = rng.random((36, 40, 32, 15)).astype(np.float32)
     atlas /= atlas.sum(-1, keepdims=True)
-    centers = np.stack([rng.integers(0, s, 3000) for s in image.shape], 1)
-    centers = np.unique(centers, axis=0).astype(np.int32)
-    spec = TriPlanarSpec(conv_filters=(8, 8, 8, 8, 8), fc_conv=16, fc_fc=16,
-                         fc2=16)
-    params = init_params(spec, torch.Generator().manual_seed(0))
+    centers = np.stack([rng.integers(0, s, n) for s in image.shape], 1)
+    return image, atlas, np.unique(centers, axis=0).astype(np.int32)
+
+
+NARROW = TriPlanarSpec(conv_filters=(8, 8, 8, 8, 8), fc_conv=16, fc_fc=16,
+                       fc2=16)
+
+
+@pytest.mark.cuda
+def test_segment_volume_card_matches_cpu(cuda_device):
+    """A small phantom through the patch engine on the card and on the CPU
+    (narrow net): labels equal, float32 probs within 1e-5."""
+    image, atlas, centers = _scan()
+    params = init_params(NARROW, torch.Generator().manual_seed(0))
     out = {}
     for dev in ("cpu", cuda_device):
-        net = TriPlanarNet.from_params(params, spec, dev)
+        net = TriPlanarNet.from_params(params, NARROW, dev)
         out[str(dev)] = segment_volume(net, image, atlas, centers,
                                        want_probs=True, chunk=1000,
-                                       probs_dtype=np.float32)
+                                       engine="patch", probs_dtype=np.float32)
     (cpu_l, cpu_p), (gpu_l, gpu_p) = out["cpu"], out[str(cuda_device)]
     np.testing.assert_allclose(gpu_p, cpu_p, rtol=0, atol=1e-5)
     np.testing.assert_array_equal(gpu_l, cpu_l)
+
+
+@pytest.mark.cuda
+def test_fcn_card_matches_cpu(cuda_device):
+    """The dense evaluator on one small slab (a compact 12x14x10 candidate
+    block of the phantom, full-width net) on the card and on the CPU:
+    labels equal, float32 probs within 1e-5."""
+    image, atlas, _ = _scan()
+    centers = np.stack(np.meshgrid(np.arange(12, 24), np.arange(14, 28),
+                                   np.arange(10, 20), indexing="ij"),
+                       -1).reshape(-1, 3).astype(np.int32)
+    params = init_params(TriPlanarSpec(), torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        net = TriPlanarNet.from_params(params, TriPlanarSpec(), dev)
+        before = fcn.SLABS
+        out[str(dev)] = segment_volume(net, image, atlas, centers,
+                                       want_probs=True, engine="fcn",
+                                       prior_dtype=np.float32,
+                                       probs_dtype=np.float32)
+        assert fcn.SLABS == before + 1
+    (cpu_l, cpu_p), (gpu_l, gpu_p) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_allclose(gpu_p, cpu_p, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(gpu_l, cpu_l)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["patch", "fcn"])
+def test_segment_volume_ignores_global_tf32(cuda_device, engine):
+    """With TF32 allowed globally (PyTorch's default for cuDNN), the
+    probabilities still equal a TF32-off run bit for bit, and the caller's
+    flags are as they were afterwards."""
+    image, atlas, centers = _scan(n=1500)
+    params = init_params(TriPlanarSpec(), torch.Generator().manual_seed(0))
+    net = TriPlanarNet.from_params(params, TriPlanarSpec(), cuda_device)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    probs = {}
+    try:
+        for tf32 in (False, True):
+            cudnn.allow_tf32 = matmul.allow_tf32 = tf32
+            _, probs[tf32] = segment_volume(net, image, atlas, centers,
+                                            want_probs=True, engine=engine,
+                                            prior_dtype=np.float32,
+                                            probs_dtype=np.float32)
+            assert (cudnn.allow_tf32, matmul.allow_tf32) == (tf32, tf32)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    np.testing.assert_array_equal(probs[True], probs[False])

@@ -117,8 +117,9 @@ def test_test_scan_matches_jax(params, jax_params, phantom, tmp_path,
                                variant):
     """The same written int16 subject through both ``test_scan``s: the
     output files agree and keep the input affine. The rawseg variant runs
-    the port with the default ``use_fcn=True``, which this slice resolves
-    to the patch engine."""
+    the port with the default ``use_fcn=True``, whose "auto" engine takes
+    the dense evaluator on this compact candidate set; the labels still
+    equal the JAX patch engine's."""
     image, atlas, mask = phantom
     image = image.astype(np.int16)
     pp = variant == "seg_prec"
@@ -190,23 +191,39 @@ def test_priors_come_from_cache_or_register_fn(params, phantom, tmp_path):
     {"cc_backend": "device"},
 ])
 def test_options_outside_the_slice_raise(params, option):
+    """Options outside the ported slices raise naming ROADMAP.md;
+    compute_dtype=bfloat16, ported since (item 3), builds an engine whose
+    net computes in bfloat16."""
+    if option == {"compute_dtype": "bfloat16"}:
+        engine = SegmentationEngine(params, _options(mode="cpu", **option))
+        assert all(t.dtype == torch.bfloat16
+                   for t in engine.net.state_dict().values())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         SegmentationEngine(params, _options(mode="cpu", **option))
 
 
 @pytest.mark.parametrize("call", ["engine_fcn", "bf16", "device_cc"])
 def test_functions_refuse_what_is_not_ported(net, phantom, call):
+    """Device connected components raise naming ROADMAP.md. The dense
+    evaluator and bfloat16, ported since (items 2 and 3), run: one centre
+    gets a label and the dense path counts its slab."""
+    from subcort_tpu_torch.models import fcn
+
     image, atlas, mask = phantom
     centers = np.array([[10, 10, 10]], np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if call == "engine_fcn":
-            segment_volume(net, image, atlas, centers, engine="fcn")
-        elif call == "bf16":
-            segment_volume(net, image, atlas, centers,
-                           compute_dtype="bfloat16")
-        else:
+    if call == "device_cc":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             post_process_segmentation("", mask, atlas_mask=mask,
                                       cc_backend="device")
+        return
+    before = fcn.SLABS
+    kw = ({"engine": "fcn"} if call == "engine_fcn"
+          else {"compute_dtype": "bfloat16", "engine": "patch"})
+    lv, pv = segment_volume(net, image, atlas, centers, want_probs=True, **kw)
+    assert fcn.SLABS == before + (call == "engine_fcn")
+    assert lv.shape == image.shape and (lv != 0).sum() <= 1
+    assert abs(float(pv[10, 10, 10].sum()) - 1.0) < 0.02
 
 
 def test_segment_volume_edge_cases(net, phantom):
