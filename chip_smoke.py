@@ -11,9 +11,16 @@ and the exit code is non-zero:
    the global TF32 flags (segment_volume turns TF32 off for its own work:
    the exact path is full float32);
 2. build the gather kernel from ops/csrc/gather_triplanar.cu;
-3. kernel vs plain PyTorch version on the card, bit-equal (torch.equal):
-   single volume (MNI 181x217x181, padded) at 8,192 random centers plus the
-   8 corners, and a 3-subject stack; times of both at N=8,192 (CUDA events);
+3. kernel vs plain PyTorch version on the card, bit-equal (torch.equal),
+   on prepare_gather_volume layouts: single volume (MNI 181x217x181,
+   padded) at 8,192 random centers plus the 8 corners, and a 3-subject
+   stack. Times at N=8,192 (CUDA events) of the kernel, its plain version
+   and a library yardstick (one torch.take over the precomputed window
+   indices, which the port never calls) in three uses: random centers in
+   one volume, the scan's first 8,192 candidates in raster order in situ
+   on its normalized volume, and random centers in the 3-subject stack;
+   each beside its bound (gather_roofline_bytes over 3.35 TB/s); and the
+   time of prepare_gather_volume on the MNI volume;
 4. the patch path: a synthetic MNI-sized subject written as NIfTI,
    segmented by SegmentationEngine.segment_folder with use_fcn=False at the
    model's full width (random weights from a seeded generator); checks the
@@ -53,6 +60,9 @@ import numpy as np
 
 N_TIMED = 8192
 SHAPE = (181, 217, 181)
+SUBJECTS = 3
+# H100 SXM memory rate, bytes/s (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
 CARD_VS_CPU = 2048
 MIN_AGREEMENT = 0.999
 MIN_DENSE_VS_PATCH = 0.9999
@@ -127,7 +137,10 @@ def main() -> None:
                                           init_params, slab_flops)
     from subcort_tpu_torch.ops.normalize import normalize_stats
     from subcort_tpu_torch.ops import gather_kernel
-    from subcort_tpu_torch.ops.gather_kernel import gather_triplanar_cuda
+    from subcort_tpu_torch.ops.gather_kernel import (gather_roofline_bytes,
+                                                     gather_triplanar_cuda,
+                                                     prepare_gather_volume,
+                                                     window_index)
     from subcort_tpu_torch.ops.patches import (gather_triplanar,
                                                gather_triplanar_subjects,
                                                pad_volume)
@@ -162,16 +175,17 @@ def main() -> None:
                             for z in (0, SHAPE[2] - 1)],
                            dtype=torch.int32, device=device)
     centers = torch.cat([rand, corners]).contiguous()
-    stack = torch.randn((3,) + tuple(padded.shape), generator=gen,
+    stack = torch.randn((SUBJECTS,) + tuple(padded.shape), generator=gen,
                         device=device)
-    subj = torch.cat([torch.randint(0, 3, (N_TIMED, 1), generator=gen,
+    subj = torch.cat([torch.randint(0, SUBJECTS, (N_TIMED, 1), generator=gen,
                                     device=device, dtype=torch.int32),
                       rand], 1).contiguous()
+    vol, stack_vol = prepare_gather_volume(padded), prepare_gather_volume(stack)
     max_err = 0.0
     for mode, got, want in (
-            ("single", gather_triplanar_cuda(padded, centers),
+            ("single", gather_triplanar_cuda(vol, centers),
              gather_triplanar(padded, centers)),
-            ("subjects", gather_triplanar_cuda(stack, subj),
+            ("subjects", gather_triplanar_cuda(stack_vol, subj),
              gather_triplanar_subjects(stack, subj))):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
@@ -180,22 +194,55 @@ def main() -> None:
             max_err = max(max_err, float((g - w).abs().max()))
         print(f"kernel == plain, {mode} mode: {got[0].shape[0]} centers, "
               "bit-equal")
-    del stack
-    # interleaved plain, kernel, kernel, plain
-    plain_a = time_ms(torch, lambda: gather_triplanar(padded, rand))
-    kernel_a = time_ms(torch, lambda: gather_triplanar_cuda(padded, rand))
-    kernel_b = time_ms(torch, lambda: gather_triplanar_cuda(padded, rand))
-    plain_b = time_ms(torch, lambda: gather_triplanar(padded, rand))
-    kernel_ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
-    print(f"gather at N={N_TIMED}: kernel {kernel_ms:.4f} ms "
-          f"({kernel_a:.4f}, {kernel_b:.4f}), plain {plain_ms:.4f} ms "
-          f"({plain_a:.4f}, {plain_b:.4f})")
-    del padded, rand, centers, subj
+
+    image, atlas, roi = make_scan(np.random.default_rng(0))
+    insitu = torch.from_numpy(candidate_centers(
+        image, Options(), roi.astype(np.uint8))[:N_TIMED]).to(device)
+    scan = _normalized_padded(image, device)
+    scan_vol = prepare_gather_volume(scan)
+    for g, w in zip(gather_triplanar_cuda(scan_vol, insitu),
+                    gather_triplanar(scan, insitu)):
+        check(torch.equal(g, w), "kernel == plain (in situ)")
+        max_err = max(max_err, float((g - w).abs().max()))
+    print(f"kernel == plain, in situ: {len(insitu)} candidates, bit-equal")
+
+    def timed_use(name, plain_in, prepared, c, plain_fn):
+        """Kernel, plain and library ms (interleaved plain, kernel,
+        kernel, plain; the library call last) and the bound."""
+        idx = window_index(c, plain_in.shape)
+        plain_a = time_ms(torch, lambda: plain_fn(plain_in, c))
+        kernel_a = time_ms(torch, lambda: gather_triplanar_cuda(prepared, c))
+        kernel_b = time_ms(torch, lambda: gather_triplanar_cuda(prepared, c))
+        plain_b = time_ms(torch, lambda: plain_fn(plain_in, c))
+        library = time_ms(torch, lambda: torch.take(plain_in, idx))
+        nbytes = gather_roofline_bytes(c, plain_in.shape)
+        use = {"ms": (kernel_a + kernel_b) / 2,
+               "plain_ms": (plain_a + plain_b) / 2, "library_ms": library,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+        print(f"gather {name} at N={len(c)}: kernel {use['ms']:.4f} ms "
+              f"({kernel_a:.4f}, {kernel_b:.4f}), plain "
+              f"{use['plain_ms']:.4f} ms ({plain_a:.4f}, {plain_b:.4f}), "
+              f"torch.take {library:.4f} ms; bound {use['bound_ms']:.4f} ms "
+              f"({nbytes} bytes), {use['bound_ms'] / use['ms']:.1%} of it")
+        return use
+
+    uses = {
+        "random": timed_use("random", padded, vol, rand, gather_triplanar),
+        "insitu": timed_use("in situ", scan, scan_vol, insitu,
+                            gather_triplanar),
+        "subjects": timed_use(f"random, {SUBJECTS}-subject stack", stack,
+                              stack_vol, subj, gather_triplanar_subjects),
+    }
+    prepare_ms = time_ms(torch, lambda: prepare_gather_volume(padded),
+                         iters=20)
+    print(f"prepare_gather_volume: {tuple(padded.shape)} -> xyz "
+          f"{tuple(vol.xyz.shape)}, zxy {tuple(vol.zxy.shape)}, "
+          f"{prepare_ms:.4f} ms")
+    del padded, rand, centers, subj, stack, vol, stack_vol, scan, scan_vol
 
     # 4. the patch path, at the model's full width
     spec = TriPlanarSpec()
     params = init_params(spec, torch.Generator().manual_seed(0))
-    image, atlas, roi = make_scan(np.random.default_rng(0))
     folder = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         sub = Path(folder) / "mni01"
@@ -363,14 +410,14 @@ def main() -> None:
         print(f"fcn_forward_slab {name}: bbox {dims}, {len(cs)} rows, "
               f"{ms:.3f} ms, {flops / 1e12:.4f} TFLOP, "
               f"{flops / ms / 1e9:.2f} TFLOP/s")
-    padded = _normalized_padded(image, device)
+    volume = prepare_gather_volume(_normalized_padded(image, device))
     c_d = torch.from_numpy(cands).to(device)
     v_d = torch.from_numpy(_atlas_vectors_host(atlas, cands)).to(device)
     with exact_float32():
         ms = time_ms(torch, lambda: forward_centers(
-            net, padded, c_d, v_d, DEFAULT_CHUNK, False), iters=3)
+            net, volume, c_d, v_d, DEFAULT_CHUNK, False), iters=3)
     print(f"forward_centers float32: {len(cands)} centers, {ms:.3f} ms")
-    del staged, staged_idx, padded, c_d, v_d
+    del staged, staged_idx, volume, c_d, v_d
 
     # 10. bfloat16 vs float32 on every candidate, both engines
     for eng in ("fcn", "patch"):
@@ -398,8 +445,15 @@ def main() -> None:
         "replaces": "subcort_tpu/ops/pallas_gather.py:176",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
+        "ms": uses["random"]["ms"],
+        "plain_ms": uses["random"]["plain_ms"],
+        "bound_ms": uses["random"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": uses["random"]["library_ms"],
+        "insitu_ms": uses["insitu"]["ms"],
+        "subjects_ms": uses["subjects"]["ms"],
+        "prepare_ms": prepare_ms,
+        "uses": uses,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,9 +1,10 @@
 """subcort_tpu_torch — the PyTorch / CUDA port of subcort_tpu.
 
 Laid out module for module like ``subcort_tpu/``, which stays the
-reference. This package imports torch and never jax; of the JAX package it
-uses only the jax-free ``subcort_tpu.config`` (the shared ``Options``
-contract) and ``subcort_tpu.io`` (NIfTI).
+reference. This package imports torch, and nothing of jax or of the JAX
+package: where it needs a jax-free module of that package (``config``'s
+``Options`` contract, ``io``'s NIfTI), it keeps its own copy, which the
+tests hold to the original.
 
 Ported so far: the inference path. ``SegmentationEngine`` / ``test_scan``
 -> ``segment_volume`` -> the dense à-trous evaluator (``engine="fcn"``,
@@ -16,9 +17,9 @@ bfloat16. Options outside the ported slices raise
 
 __version__ = "0.1.0"
 
-from subcort_tpu.io import NiftiImage, load_nii, save_nii  # noqa: F401
 from subcort_tpu_torch.config import (Options, load_options,  # noqa: F401
-                                      select_device)
+                                      print_options, select_device)
+from subcort_tpu_torch.io import NiftiImage, load_nii, save_nii  # noqa: F401
 from subcort_tpu_torch.engine import (  # noqa: F401
     SegmentationEngine,
     load_test_names,

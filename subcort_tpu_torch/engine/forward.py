@@ -13,19 +13,23 @@ from __future__ import annotations
 import torch
 
 from subcort_tpu_torch.models.triplanar import TriPlanarNet
-from subcort_tpu_torch.ops.gather_kernel import gather_triplanar_cuda
+from subcort_tpu_torch.ops.gather_kernel import (GatherVolume,
+                                                 gather_triplanar_cuda)
 
 
 @torch.inference_mode()
-def forward_centers(net: TriPlanarNet, padded: torch.Tensor,
+def forward_centers(net: TriPlanarNet, volume: torch.Tensor | GatherVolume,
                     centers: torch.Tensor, atlas_vecs: torch.Tensor,
                     chunk: int, want_probs: bool,
                     probs_dtype: torch.dtype = torch.float32):
     """Classify ``centers`` (N, 3) int32 against the padded volume.
 
-    ``padded``, ``centers`` and ``atlas_vecs`` (N, 15) float32 live on the
-    net's device; the gather is the CUDA kernel there, its plain version on
-    the CPU. The gather stays float32 whatever the net's dtype (it does no
+    ``volume``, ``centers`` and ``atlas_vecs`` (N, 15) float32 live on the
+    net's device. On the card ``volume`` is the padded volume's
+    :func:`~subcort_tpu_torch.ops.gather_kernel.prepare_gather_volume`
+    layouts, made once per scan, and the gather is the CUDA kernel; on the
+    CPU it is the padded volume and the gather its plain version. The
+    gather stays float32 whatever the net's dtype (it does no
     arithmetic); the patches are cast to the net's dtype after it, as the
     JAX Pallas branch does (forward.py:59-70), and the head casts the
     priors. Returns ((N,) uint8 labels, (N, C) probs in ``probs_dtype`` or
@@ -34,16 +38,16 @@ def forward_centers(net: TriPlanarNet, padded: torch.Tensor,
     """
     dtype = next(net.parameters()).dtype
     n = int(centers.shape[0])
-    labels = torch.empty(n, dtype=torch.uint8, device=padded.device)
+    labels = torch.empty(n, dtype=torch.uint8, device=volume.device)
     probs = None
     if want_probs:
         store = torch.float32 if probs_dtype == torch.uint8 else probs_dtype
         probs = torch.empty((n, net.spec.num_classes), dtype=store,
-                            device=padded.device)
+                            device=volume.device)
     for start in range(0, n, chunk):
         stop = min(start + chunk, n)
         ax, co, sa = (v.to(dtype) for v in
-                      gather_triplanar_cuda(padded, centers[start:stop]))
+                      gather_triplanar_cuda(volume, centers[start:stop]))
         p = net(ax, co, sa, atlas_vecs[start:stop])
         labels[start:stop] = p.argmax(dim=1)
         if want_probs:

@@ -10,7 +10,8 @@ host and results scattered on the host:
   and run through the à-trous tri-planar convs, then the head MLP at the
   candidate voxels (:func:`subcort_tpu_torch.models.fcn.fcn_forward_slab`);
 - the patch path (``engine="patch"``): the normalized, padded volume on the
-  device and chunks of (the CUDA tri-planar gather kernel -> CNN -> argmax)
+  device, laid out once for the gather kernel on the card, and chunks of
+  (the CUDA tri-planar gather kernel -> CNN -> argmax)
   (:func:`subcort_tpu_torch.engine.forward.forward_centers`).
 
 ``engine="auto"`` (the default; ``use_fcn = True``) picks the dense path
@@ -45,15 +46,16 @@ import numpy as np
 import torch
 from scipy import ndimage
 
-from subcort_tpu.io import NiftiImage, load_nii, save_nii
 from subcort_tpu_torch.config import (Options, exact_float32, not_ported,
                                       select_device)
 from subcort_tpu_torch.engine.forward import forward_centers
 from subcort_tpu_torch.engine.metrics import ScanStats
 from subcort_tpu_torch.engine.postprocess import post_process_segmentation
+from subcort_tpu_torch.io import NiftiImage, load_nii, save_nii
 from subcort_tpu_torch.models.fcn import HALF, RF, fcn_forward_slab
 from subcort_tpu_torch.models.triplanar import (DEFAULT_SPEC, Params,
                                                 TriPlanarNet, TriPlanarSpec)
+from subcort_tpu_torch.ops.gather_kernel import prepare_gather_volume
 from subcort_tpu_torch.ops.normalize import normalize_stats
 from subcort_tpu_torch.ops.patches import pad_volume
 from subcort_tpu_torch.ops.sampling import get_mask_voxels
@@ -354,10 +356,14 @@ def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
                             prior_dtype, probs_dtype, device)
             return label_vol, prob_vol
 
-        padded = _normalized_padded(image, device)
+        volume = _normalized_padded(image, device)
+        if volume.is_cuda:
+            # the kernel's two layouts, once per scan; the plain padded
+            # volume is freed here
+            volume = prepare_gather_volume(volume)
         vecs = _atlas_vectors_host(atlas, centers)
         labels, probs = forward_centers(
-            net, padded, torch.from_numpy(centers).to(device),
+            net, volume, torch.from_numpy(centers).to(device),
             torch.from_numpy(vecs).to(device), chunk, want_probs,
             probs_dtype=getattr(torch, np.dtype(probs_dtype).name))
     label_vol[centers[:, 0], centers[:, 1], centers[:, 2]] = labels.cpu().numpy()

@@ -20,8 +20,8 @@ import os
 import numpy as np
 from scipy import ndimage
 
-from subcort_tpu.io import load_nii
 from subcort_tpu_torch.config import not_ported
+from subcort_tpu_torch.io import load_nii
 
 
 def label_components_np(mask: np.ndarray):

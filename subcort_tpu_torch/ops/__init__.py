@@ -1,7 +1,12 @@
 """Data-path ops: normalization, voxel enumeration and the tri-planar
 gather (plain version and CUDA kernel)."""
 
-from subcort_tpu_torch.ops.gather_kernel import gather_triplanar_cuda  # noqa: F401
+from subcort_tpu_torch.ops.gather_kernel import (  # noqa: F401
+    GatherVolume,
+    gather_roofline_bytes,
+    gather_triplanar_cuda,
+    prepare_gather_volume,
+)
 from subcort_tpu_torch.ops.normalize import (normalize_nonzero,  # noqa: F401
                                              normalize_stats)
 from subcort_tpu_torch.ops.patches import (  # noqa: F401

@@ -19,12 +19,14 @@ from subcort_tpu_torch.models import TriPlanarNet, TriPlanarSpec, init_params
 from subcort_tpu_torch.engine import segment_volume
 from subcort_tpu_torch.models import fcn
 from subcort_tpu_torch.ops import gather_kernel
-from subcort_tpu_torch.ops.gather_kernel import gather_triplanar_cuda
+from subcort_tpu_torch.ops.gather_kernel import (gather_triplanar_cuda,
+                                                 prepare_gather_volume)
 from subcort_tpu_torch.ops.patches import (gather_triplanar,
                                            gather_triplanar_subjects,
                                            pad_volume)
 
-# the corners of tests/test_pallas_gather.py plus every corner of the volume
+# the corners of tests/test_pallas_gather.py plus every corner of the volume;
+# padded (66, 65, 67): Y' and Z' are not multiples of 4
 SHAPE = (34, 33, 35)
 CORNERS = [[0, 0, 0], [33, 32, 34], [0, 32, 17], [33, 0, 0]] + [
     [x, y, z] for x in (0, 33) for y in (0, 32) for z in (0, 34)]
@@ -37,13 +39,14 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _single(n, device, seed=0):
+def _single(n, device, seed=0, corners=True):
     rng = np.random.default_rng(seed)
     vol = rng.standard_normal(SHAPE).astype(np.float32)
     centers = np.stack([rng.integers(0, s, n) for s in SHAPE], 1)
-    centers = np.concatenate([centers, np.asarray(CORNERS)]).astype(np.int32)
+    if corners:
+        centers = np.concatenate([centers, np.asarray(CORNERS)])
     return (pad_volume(torch.from_numpy(vol).to(device)),
-            torch.from_numpy(centers).to(device))
+            torch.from_numpy(centers.astype(np.int32)).to(device))
 
 
 def _assert_equal(got, want):
@@ -53,29 +56,40 @@ def _assert_equal(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [0, 1, 999, 8192])
-def test_kernel_matches_plain_single_volume(cuda_device, n):
-    """Random centers plus the border corners; N need not be a multiple of
-    16. One launch per call, counted."""
-    padded, centers = _single(n, cuda_device)
+@pytest.mark.parametrize("n,corners", [(1, False), (3, False), (0, True),
+                                       (13, True), (8192, True)])
+def test_kernel_matches_plain_single_volume(cuda_device, n, corners):
+    """N = 1 and 3 random centers; the 12 border corners alone; 13 random
+    plus the corners (25, not a multiple of the ring depth); 8,192 plus the
+    corners. One launch per call, counted."""
+    padded, centers = _single(n, cuda_device, corners=corners)
+    volume = prepare_gather_volume(padded)
     before = gather_kernel.LAUNCHES
-    got = gather_triplanar_cuda(padded, centers)
+    got = gather_triplanar_cuda(volume, centers)
     torch.cuda.synchronize()
     assert gather_kernel.LAUNCHES == before + 1
     _assert_equal(got, gather_triplanar(padded, centers))
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_subjects(cuda_device):
+@pytest.mark.parametrize("n", [1, 777])
+def test_kernel_matches_plain_subjects(cuda_device, n):
+    """A 3-subject stack whose padded Y' and Z' (69, 61) are not multiples
+    of 4, random rows plus every corner of every subject."""
     rng = np.random.default_rng(1)
-    S, shape, n = 3, (40, 36, 28), 777
+    S, shape = 3, (40, 37, 29)
     vols = rng.standard_normal((S,) + tuple(s + 32 for s in shape))
     centers = np.stack([rng.integers(0, S, n)]
                        + [rng.integers(0, s, n) for s in shape], 1)
+    corners = [[s, x, y, z] for s in range(S) for x in (0, shape[0] - 1)
+               for y in (0, shape[1] - 1) for z in (0, shape[2] - 1)]
+    centers = np.concatenate([centers, corners])
     padded = torch.from_numpy(vols.astype(np.float32)).to(cuda_device)
     c = torch.from_numpy(centers.astype(np.int32)).to(cuda_device)
-    got = gather_triplanar_cuda(padded, c)
+    before = gather_kernel.LAUNCHES
+    got = gather_triplanar_cuda(prepare_gather_volume(padded), c)
     torch.cuda.synchronize()
+    assert gather_kernel.LAUNCHES == before + 1
     _assert_equal(got, gather_triplanar_subjects(padded, c))
 
 
@@ -83,8 +97,9 @@ def test_kernel_matches_plain_subjects(cuda_device):
 def test_kernel_empty_batch_launches_nothing(cuda_device):
     padded, _ = _single(0, cuda_device)
     before = gather_kernel.LAUNCHES
-    got = gather_triplanar_cuda(padded, torch.zeros((0, 3), dtype=torch.int32,
-                                                    device=cuda_device))
+    got = gather_triplanar_cuda(prepare_gather_volume(padded),
+                                torch.zeros((0, 3), dtype=torch.int32,
+                                            device=cuda_device))
     assert gather_kernel.LAUNCHES == before
     assert all(g.shape == (0, 32, 32) for g in got)
 
@@ -93,7 +108,18 @@ def test_kernel_empty_batch_launches_nothing(cuda_device):
 def test_kernel_refuses_mixed_devices(cuda_device):
     padded, centers = _single(4, cuda_device)
     with pytest.raises(ValueError, match="centers on"):
-        gather_triplanar_cuda(padded, centers.cpu())
+        gather_triplanar_cuda(prepare_gather_volume(padded), centers.cpu())
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_an_unprepared_volume(cuda_device):
+    """On the card the kernel reads prepare_gather_volume's layouts only;
+    a padded CUDA tensor raises and launches nothing."""
+    padded, centers = _single(4, cuda_device)
+    before = gather_kernel.LAUNCHES
+    with pytest.raises(ValueError, match="prepare_gather_volume"):
+        gather_triplanar_cuda(padded, centers)
+    assert gather_kernel.LAUNCHES == before
 
 
 def _scan(seed=2, n=3000):

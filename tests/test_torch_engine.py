@@ -19,13 +19,14 @@ import pytest
 import jax
 import torch
 
-from subcort_tpu.config import Options
+from subcort_tpu.config import Options as JaxOptions
 from subcort_tpu.engine import segment_volume as jax_segment_volume
 from subcort_tpu.engine import test_scan as jax_test_scan
 from subcort_tpu.engine.postprocess import \
     post_process_segmentation as jax_post_process
 from subcort_tpu.io import NiftiImage, load_nii, save_nii
 from subcort_tpu.models import init_params as jax_init_params
+from subcort_tpu_torch.config import Options
 from subcort_tpu_torch.engine import (SegmentationEngine,
                                       post_process_segmentation,
                                       segment_volume)
@@ -70,12 +71,14 @@ def phantom(rng):
     return image, atlas, mask
 
 
-def _options(**kw):
+def _options(options_cls=Options, **kw):
+    """The port's options, or with ``options_cls=JaxOptions`` the JAX
+    package's, for the JAX function a test compares against."""
     base = dict(post_process=True, out_probabilities=True, crop=True,
                 debug=False, net_verbose=0, dilate_crop_iters=2,
                 test_batch_size=256)
     base.update(kw)
-    return Options(**base)
+    return options_cls(**base)
 
 
 def _write_subject(folder, image, atlas, mask):
@@ -126,7 +129,7 @@ def test_test_scan_matches_jax(params, jax_params, phantom, tmp_path,
     jax_scan = _write_subject(tmp_path / "jax" / "s1", image, atlas, mask)
     port_scan = _write_subject(tmp_path / "port" / "s1", image, atlas, mask)
     jax_test_scan(jax_params, str(jax_scan),
-                  _options(post_process=pp, use_fcn=False))
+                  _options(JaxOptions, post_process=pp, use_fcn=False))
     engine = SegmentationEngine(params, _options(post_process=pp,
                                                  use_fcn=not pp, mode="cpu"))
     assert engine.segment_scan(str(port_scan)) >= 0
@@ -302,9 +305,9 @@ def test_numpy_helper_copies_match_jax_package(phantom, dtype):
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1:] == want[1:]
     for crop in (True, False):
-        opts = _options(crop=crop)
-        np.testing.assert_array_equal(candidate_centers(image, opts, mask),
-                                      jax_candidates(image, opts, mask))
+        np.testing.assert_array_equal(
+            candidate_centers(image, _options(crop=crop), mask),
+            jax_candidates(image, _options(JaxOptions, crop=crop), mask))
     seg = (image.astype(np.int64) % 5).astype(np.uint8)
     assert dice_per_class(seg, mask * 3) == jax_dice(seg, mask * 3)
 

@@ -27,7 +27,7 @@ import jax.numpy as jnp
 import torch
 
 import subcort_tpu.models.fcn as jax_fcn
-from subcort_tpu.config import Options
+from subcort_tpu.config import Options as JaxOptions
 from subcort_tpu.engine import segment_volume as jax_segment_volume
 from subcort_tpu.engine import test_scan as jax_test_scan
 from subcort_tpu.engine.infer import _fcn_slab_inputs as jax_slab_inputs
@@ -35,6 +35,7 @@ from subcort_tpu.engine.infer import _quantize_priors as jax_quantize
 from subcort_tpu.io import NiftiImage, load_nii, save_nii
 from subcort_tpu.models import init_params as jax_init_params
 from subcort_tpu.models.triplanar import DEFAULT_SPEC as JAX_SPEC
+from subcort_tpu_torch.config import Options
 from subcort_tpu_torch.engine import SegmentationEngine, segment_volume
 from subcort_tpu_torch.engine.infer import (_fcn_slab_inputs,
                                             _quantize_priors)
@@ -392,7 +393,7 @@ def test_test_scan_use_fcn_matches_jax(jax_params, phantom, tmp_path):
                 use_fcn=True)
     jax_scan = _write_subject(tmp_path / "jax" / "s1", image, atlas, mask)
     port_scan = _write_subject(tmp_path / "port" / "s1", image, atlas, mask)
-    jax_test_scan(jax_params, str(jax_scan), Options(**opts))
+    jax_test_scan(jax_params, str(jax_scan), JaxOptions(**opts))
     before = fcn.SLABS
     engine = SegmentationEngine(params_from_jax(jax_params),
                                 Options(mode="cpu", **opts))

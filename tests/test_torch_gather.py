@@ -3,8 +3,13 @@
 The port's plain gather is held bit-equal to the JAX package's Pallas
 kernel (interpret mode, as tests/test_pallas_gather.py runs it on the CPU)
 and to its numpy twin. The CUDA kernel is held bit-equal to the plain
-version on the card by tests/test_torch_cuda.py.
+version on the card by tests/test_torch_cuda.py. Here, on the CPU, the
+kernel's layouts (``prepare_gather_volume``) are read through a plain
+model of its TMA boxes, which pins the coordinate convention the kernel
+uses, and the byte count of its bound is held to a brute-force union.
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -18,7 +23,11 @@ from subcort_tpu.ops.pallas_gather import (BLOCK, gather_triplanar_pallas,
                                            make_view_volumes_subjects)
 from subcort_tpu.ops.patches import gather_triplanar_np
 from subcort_tpu_torch.ops import gather_kernel
-from subcort_tpu_torch.ops.gather_kernel import gather_triplanar_cuda
+from subcort_tpu_torch.ops.gather_kernel import (GatherVolume,
+                                                 gather_roofline_bytes,
+                                                 gather_triplanar_cuda,
+                                                 prepare_gather_volume,
+                                                 window_index)
 from subcort_tpu_torch.ops.patches import (gather_triplanar,
                                            gather_triplanar_subjects,
                                            pad_volume)
@@ -83,9 +92,12 @@ def test_plain_gather_subjects_matches_train_gather_and_pallas(rng):
         np.testing.assert_array_equal(g.numpy(), np.asarray(p))
 
 
+@pytest.mark.parametrize("prepared", [False, True],
+                         ids=["padded", "prepared"])
 @pytest.mark.parametrize("mode", ["single", "subjects"])
-def test_wrapper_on_cpu_takes_plain_path(mode, rng):
-    """A CPU tensor runs the plain version and never counts a launch."""
+def test_wrapper_on_cpu_takes_plain_path(mode, prepared, rng):
+    """A CPU tensor, padded or laid out by prepare_gather_volume, runs the
+    plain version and never counts a launch."""
     if mode == "single":
         vol, centers = _case("random", rng)
         padded = pad_volume(torch.from_numpy(vol))
@@ -95,10 +107,127 @@ def test_wrapper_on_cpu_takes_plain_path(mode, rng):
         padded = torch.from_numpy(vols)
         want = gather_triplanar_subjects(padded, torch.from_numpy(centers))
     before = gather_kernel.LAUNCHES
-    got = gather_triplanar_cuda(padded, torch.from_numpy(centers))
+    volume = prepare_gather_volume(padded) if prepared else padded
+    got = gather_triplanar_cuda(volume, torch.from_numpy(centers))
     assert gather_kernel.LAUNCHES == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# unpadded extents whose padded Y' and Z' (73, 65) are not multiples of 4
+ODD_SHAPE = (36, 41, 33)
+ODD_CORNERS = [[x, y, z] for x in (0, ODD_SHAPE[0] - 1)
+               for y in (0, ODD_SHAPE[1] - 1) for z in (0, ODD_SHAPE[2] - 1)]
+
+# the kernel's tensor maps (csrc/gather_triplanar.cu): for each window,
+# (layout, box, origin, shift), innermost coordinate first; c = (s, x, y,
+# z). A box starts its innermost dim on a 4-float boundary and is 36 wide;
+# the window is its rows' floats [shift, shift + 32).
+MAPS = {
+    "axial": ("zxy", (36, 32, 1, 1),
+              lambda s, x, y, z: (y & ~3, x, z + 16, s), lambda c: c[2] & 3),
+    "coronal": ("xyz", (36, 1, 32, 1),
+                lambda s, x, y, z: (z & ~3, y + 16, x, s), lambda c: c[3] & 3),
+    "sagittal": ("xyz", (36, 32, 1, 1),
+                 lambda s, x, y, z: (z & ~3, y, x + 16, s), lambda c: c[3] & 3),
+}
+
+
+def _tma_box(layout: torch.Tensor, extents, box, origin) -> torch.Tensor:
+    """A tiled TMA load as plain indexing: the box of a 4-D map over
+    ``layout`` (outermost dim first; ``extents`` the map's dims, innermost
+    first), landed row-major in shared memory as (32, 36): zero where the
+    box leaves the map (TMA's bounds fill), which only the innermost dim
+    may do, past the window."""
+    for o, b, e in zip(origin[1:], box[1:], extents[1:]):
+        assert 0 <= o and o + b <= e, "a window left its map"
+    assert origin[0] % 4 == 0 and origin[0] + 32 <= extents[0]
+    o0, o1, o2, o3 = origin
+    b0, b1, b2, b3 = box
+    out = torch.zeros((b3, b2, b1, b0), dtype=layout.dtype)
+    inner = layout[o3:o3 + b3, o2:o2 + b2, o1:o1 + b1,
+                   o0:min(o0 + b0, extents[0])]
+    out[..., :inner.shape[-1]] = inner
+    return out.reshape(32, 36)
+
+
+def _read_boxes(vol: GatherVolume, centers: np.ndarray):
+    s_, xp, yp, zp = vol.shape
+    extents = {"xyz": (zp, yp, xp, s_), "zxy": (yp, xp, zp, s_)}
+    out = []
+    for name in ("axial", "coronal", "sagittal"):
+        layout_name, box, origin, shift = MAPS[name]
+        layout = getattr(vol, layout_name)
+        windows = []
+        for c in centers.tolist():
+            c = ([0] if len(c) == 3 else []) + c
+            rows = _tma_box(layout, extents[layout_name], box, origin(*c))
+            windows.append(rows[:, shift(c):shift(c) + 32])
+        out.append(torch.stack(windows))
+    return out
+
+
+@pytest.mark.parametrize("mode", ["single", "subjects"])
+def test_prepared_layouts_read_by_the_kernels_boxes(mode, rng):
+    """prepare_gather_volume rounds Z' and Y' up to 4 floats with zeros,
+    keeps the volume's values in both layouts, and the kernel's box table
+    read over them is bit-equal to the plain gather, corners included."""
+    vol = rng.standard_normal(ODD_SHAPE).astype(np.float32)
+    padded = pad_volume(torch.from_numpy(vol))
+    centers = np.concatenate([np.stack([rng.integers(0, s, 40)
+                                        for s in ODD_SHAPE], 1),
+                              ODD_CORNERS]).astype(np.int32)
+    if mode == "subjects":
+        padded = torch.stack([padded, -padded, 2 * padded])
+        centers = np.concatenate([rng.integers(0, 3, (len(centers), 1)),
+                                  centers], 1).astype(np.int32)
+    prepared = prepare_gather_volume(padded)
+    s_ = 3 if mode == "subjects" else 1
+    assert prepared.shape == (s_, 68, 73, 65)
+    assert tuple(prepared.xyz.shape) == (s_, 68, 73, 68)
+    assert tuple(prepared.zxy.shape) == (s_, 65, 68, 76)
+    assert prepared.xyz.is_contiguous() and prepared.zxy.is_contiguous()
+    stack = padded if mode == "subjects" else padded[None]
+    assert torch.equal(prepared.xyz[..., :65], stack)
+    assert torch.equal(prepared.zxy[..., :73], stack.permute(0, 3, 1, 2))
+    assert not prepared.xyz[..., 65:].any()
+    assert not prepared.zxy[..., 73:].any()
+    assert torch.equal(prepared.padded(), padded)
+    c = torch.from_numpy(centers)
+    want = (gather_triplanar_subjects(padded, c) if mode == "subjects"
+            else gather_triplanar(padded, c))
+    for g, w in zip(_read_boxes(prepared, centers), want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode", ["single", "subjects"])
+def test_roofline_bytes_match_a_brute_force_union(mode, rng):
+    """Distinct touched voxels x 4 bytes + 12,288 written bytes a center,
+    against a Python set of every voxel each window reads; window_index
+    is the gather itself."""
+    shape = (6, 5, 7)
+    padded = torch.from_numpy(rng.standard_normal(
+        tuple(d + 32 for d in shape)).astype(np.float32))
+    centers = np.stack([rng.integers(0, d, 9) for d in shape], 1)
+    if mode == "subjects":
+        padded = torch.stack([padded, padded + 1])
+        centers = np.concatenate([rng.integers(0, 2, (9, 1)), centers], 1)
+    centers = np.concatenate([centers, centers[:2]]).astype(np.int32)
+    touched = set()
+    for row in centers.tolist():
+        s_, (x, y, z) = (row[0] if len(row) == 4 else 0), row[-3:]
+        for i, j in itertools.product(range(32), range(32)):
+            touched |= {(s_, x + i, y + j, z + 16), (s_, x + i, y + 16, z + j),
+                        (s_, x + 16, y + i, z + j)}
+    c = torch.from_numpy(centers)
+    assert gather_roofline_bytes(c, padded.shape) == (
+        4 * len(touched) + 12288 * len(centers))
+    assert gather_roofline_bytes(c[:0], padded.shape) == 0
+    taken = padded.take(window_index(c, padded.shape))
+    want = (gather_triplanar_subjects(padded, c) if mode == "subjects"
+            else gather_triplanar(padded, c))
+    for k, w in enumerate(want):
+        assert torch.equal(taken[:, k], w)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "centers_dtype", "centers_cols",

@@ -13,11 +13,10 @@ import jax
 import torch
 
 import lasagne_oracle as oracle
-from subcort_tpu.config import Options
 from subcort_tpu.models import apply as jax_apply
 from subcort_tpu.models import init_params as jax_init_params
 from subcort_tpu.models.importer import save_theano_checkpoint
-from subcort_tpu_torch.config import select_device
+from subcort_tpu_torch.config import Options, select_device
 from subcort_tpu_torch.models import (TriPlanarNet, init_params,
                                       load_theano_checkpoint, num_params,
                                       params_from_jax)
