@@ -41,7 +41,39 @@ and the exit code is non-zero:
 10. bfloat16 vs float32 on all candidates, both engines, with the
    segment_volume seconds of all four: label agreement at least the JAX
    package's own on the same scan and weights, less 0.002;
-11. one JSON line of kernel facts, then the last line
+11. training, at the model's full width, float32, TF32 off:
+   (a) three MNI-sized synthetic subjects (make_scan's T1, each with its
+       own seed, 14 structures cut from the ROI ellipsoid plus a class-15
+       ring, informative priors) written as NIfTI and read back by
+       build_training_index; the shuffled index capped at 32,768 samples,
+       the whole 3-subject stack kept (136 MB, beyond the 50 MB L2);
+       Trainer.fit at batch 128 for 2 epochs. Checks: gather kernel
+       launches >= train steps + eval batches, finite losses, epoch 2's
+       train loss below epoch 1's, the best-only checkpoint reloads bit-
+       equal to the trainer's params, and the trained params segment the
+       phase-4 subject through segment_folder (the dense default) with
+       non-zero labels. Prints epoch seconds and samples/s;
+   (b) CUDA-event ms over 50 steps on a pre-staged batch of 128, each
+       beside the host's ms to enqueue it: the train step in float32 and
+       bfloat16, the float32 step with the plain gather, the gather kernel
+       alone on the stack beside its bound, its plain version and
+       torch.take; the float32 step's parts (forward, forward + backward,
+       Adam, BN EMA); the gather's share of the step; then torch.profiler
+       over 20 float32 steps: device ms by part, kernels per step, the
+       device's busy share;
+   (c) one step (dropout 0, no augmentation) from the same seeded params
+       and batch on the card and on the CPU: in float32, relative loss
+       difference and BN EMA within 1e-5; in bfloat16, the relative loss
+       difference within 1e-3 and the mean |BN EMA difference| within a
+       quarter of the CPU's own bfloat16 vs float32 one;
+   (d) quality: tests/test_trainqual.py's phantom (3 subjects 48x54x44,
+       noise 4, exact priors, seed 1), 6 epochs at batch 128 on an index
+       capped at 4,096, with cuDNN's deterministic algorithms: best
+       valid_accuracy >= 0.90 and held-out Dice >= 0.85 through
+       segment_volume. Prints, without a gate, bfloat16 vs
+       float32 label agreement of the trained MNI weights on the phase-4
+       scan;
+12. one JSON line of kernel facts, then the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -76,6 +108,35 @@ SUB_BOX = 24
 # does, less BF16_SLACK; 0.999 is the bound for a trained net.
 BF16_REFERENCE = {"fcn": 0.995660533358121, "patch": 0.9666345405889346}
 BF16_SLACK = 0.002
+# training (phase 11)
+TRAIN_CAP = 32768
+TRAIN_BATCH = 128
+TRAIN_EPOCHS = 2
+STEP_ITERS = 50
+CARD_VS_CPU_STEP = 1e-5
+# a bfloat16 step card vs CPU (the CPU's is held to the JAX package's in
+# tests/test_torch_train.py): the mean |BN EMA difference| within this
+# share of the CPU's own bfloat16 vs float32 one, so a card step that ran
+# in float32 fails; the loss within a quarter of bfloat16's 2^-8 step
+BF16_STEP_SHARE = 0.25
+BF16_STEP_LOSS = 1e-3
+PROFILE_STEPS = 20
+# device kernels by the part of the train step they belong to, first
+# match wins
+KERNEL_PARTS = (
+    ("gather kernel", ("gather_triplanar",)),
+    ("BN (native batch_norm fwd + bwd)", ("batch_norm",)),
+    ("PReLU fwd + bwd", ("prelu",)),
+    ("max-pool fwd + bwd", ("max_pool",)),
+    ("convolutions (cuDNN: implicit GEMM, FFT, wgrad)",
+     ("fprop", "dgrad", "wgrad", "fft2d", "flip_filter", "convolve",
+      "cf32", "cudnn")),
+    ("dense layers (cuBLAS GEMMs)", ("gemm", "gemv")),
+    ("Adam + BN EMA (foreach)", ("multi_tensor",)),
+    ("reductions (bias and alpha grads, loss)", ("reduce_kernel",)),
+    ("dropout masks", ("bernoulli", "distribution")),
+)
+QUALITY_VALID_ACC, QUALITY_DICE = 0.90, 0.85
 
 
 def check(cond: bool, what: str) -> None:
@@ -101,18 +162,401 @@ def make_scan(rng):
     return image, atlas, roi
 
 
-def time_ms(torch, fn, iters: int = 50) -> float:
-    """Mean device milliseconds per call, CUDA events, after a warm-up."""
+def make_training_subject(seed: int):
+    """An MNI-sized training subject: make_scan's T1 (its own seed) with
+    a 15-class GT, classes 1..14 the ROI ellipsoid cut into 7 angular
+    sectors around its z axis times its two z halves, class 15 a ring of
+    boundary background 2 voxels wide around it; each structure brightens
+    the T1 by 20 per class, and the prior puts 0.6 of its mass on the
+    voxel's structure, so both inputs carry the labels."""
+    rng = np.random.default_rng(seed)
+    image, atlas, roi = make_scan(rng)
+    x, y, z = np.ogrid[:SHAPE[0], :SHAPE[1], :SHAPE[2]]
+    sector = ((np.arctan2(y - 108.0, x - 90.0) + np.pi)
+              / (2 * np.pi) * 7).astype(np.int64) % 7
+    cls = (1 + sector + 7 * (z >= 90)).astype(np.uint8)
+    gt = np.zeros(SHAPE, np.uint8)
+    gt[roi] = np.broadcast_to(cls, SHAPE)[roi]
+    ring = (((x - 90) / 30.0) ** 2 + ((y - 108) / 34.0) ** 2
+            + ((z - 90) / 28.0) ** 2) < 1.0
+    gt[ring & ~roi] = 15
+    image[roi] += (gt[roi] * 20).astype(np.int16)
+    pri = atlas[roi] * 0.4
+    pri[np.arange(len(pri)), gt[roi].astype(np.int64) - 1] += 0.6
+    atlas[roi] = pri
+    return image, gt, atlas
+
+
+def time_ms(torch, fn, iters: int = 50, host: bool = False):
+    """Mean device milliseconds per call, CUDA events, after a warm-up;
+    with ``host``, also the host's milliseconds per call to enqueue them
+    (before the closing synchronize): when the two agree, the host's
+    launches hold the card back."""
     for _ in range(5):
         fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    device_ms = start.elapsed_time(end) / iters
+    return (device_ms, host_ms) if host else device_ms
+
+
+def profile_steps(torch, step, steps: int = PROFILE_STEPS) -> dict:
+    """torch.profiler over ``steps`` calls of ``step``: device ms per step
+    by part of the step (KERNEL_PARTS), kernels per step, and the device's
+    busy share (device time over the window's wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # the kernels themselves: an aten op's own row repeats its kernels'
+    # time, and a user annotation's (Optimizer.step) is the span of its
+    # kernels, idle gaps included
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("Optimizer.")]
+    device_ms = sum(device_us(e) for e in events) / 1e3
+    by_part = {}
+    for e in events:
+        part = next((name for name, keys in KERNEL_PARTS
+                     if any(k in e.key for k in keys)), "other elementwise")
+        by_part[part] = by_part.get(part, 0.0) + device_us(e) / 1e3 / steps
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms / steps,
+            "device_busy_share": device_ms / wall_ms,
+            "kernels_per_step": sum(e.count for e in events) / steps,
+            "device_ms_per_step_by_part": dict(sorted(
+                by_part.items(), key=lambda kv: -kv[1]))}
+
+
+def train_phase(torch, device, image, atlas, roi) -> dict:
+    """Phase 11: training on the card (see the module docstring)."""
+    import dataclasses
+
+    from subcort_tpu_torch import (NiftiImage, Options, SegmentationEngine,
+                                   Trainer, TrainingIndex, TriPlanarNet,
+                                   TriPlanarSpec, build_training_index,
+                                   init_params, load_nii,
+                                   load_theano_checkpoint, save_nii,
+                                   segment_volume)
+    from subcort_tpu_torch.engine import (candidate_centers,
+                                          list_training_subjects, mean_dice,
+                                          train_split_stratified)
+    from subcort_tpu_torch.config import exact_float32
+    from subcort_tpu_torch.engine.train import ADAM, _forward, train_step
+    from subcort_tpu_torch.models import update_bn_ema
+    from subcort_tpu_torch.ops import gather_kernel
+    from subcort_tpu_torch.ops.gather_kernel import (gather_roofline_bytes,
+                                                     gather_triplanar_cuda,
+                                                     prepare_gather_volume)
+    from subcort_tpu_torch.ops.patches import gather_triplanar_subjects
+    from subcort_tpu_torch.registration import make_synthetic_cohort
+
+    spec = TriPlanarSpec()
+    out = {}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        # (a) the MNI-sized cohort, through NIfTI and build_training_index
+        t0 = time.perf_counter()
+        for i in range(3):
+            t1, gt, prior = make_training_subject(100 + i)
+            sub = root / "cohort" / f"mni{i:02d}"
+            (sub / "tmp").mkdir(parents=True)
+            save_nii(NiftiImage(t1), str(sub / "T1.nii.gz"))
+            save_nii(NiftiImage(gt), str(sub / "gt_15_classes.nii.gz"))
+            save_nii(NiftiImage(prior),
+                     str(sub / "tmp" / "MNI_sub_probabilities.nii.gz"))
+        del t1, gt, prior
+        options = Options(experiment="chip_smoke", mode="cuda0",
+                          train_folder=str(root / "cohort"),
+                          batch_size=TRAIN_BATCH, max_epochs=TRAIN_EPOCHS,
+                          patience=5, train_split=0.25, net_verbose=1,
+                          load_weights=False, debug=False, seed=0)
+        full = build_training_index(options)
+        index = TrainingIndex(full.volumes, full.centers[:TRAIN_CAP],
+                              full.labels[:TRAIN_CAP],
+                              full.atlas[:TRAIN_CAP], full.subject_names)
+        print(f"training cohort: 3 subjects {SHAPE}, stack "
+              f"{index.volumes.shape} ({index.volumes.nbytes} bytes), "
+              f"{len(full)} samples, capped at {len(index)}; written and "
+              f"indexed in {time.perf_counter() - t0:.3f} s")
+        del full
+        train_idx, valid_idx = train_split_stratified(index.labels, 0.25)
+        steps = len(train_idx) // TRAIN_BATCH * TRAIN_EPOCHS
+        eval_batches = -(-len(valid_idx) // max(TRAIN_BATCH, 2048)) \
+            * TRAIN_EPOCHS
+        trainer = Trainer(options, spec, weights_path=str(root / "nets"))
+        gather_kernel.LAUNCHES = 0
+        history = trainer.fit(index)
+        launches = gather_kernel.LAUNCHES
+        check(len(history) == TRAIN_EPOCHS, "Trainer.fit ran every epoch")
+        check(launches >= steps + eval_batches,
+              f"train gather launches {launches} >= steps {steps} + eval "
+              f"batches {eval_batches}")
+        losses = [(h["train_loss"], h["valid_loss"]) for h in history]
+        check(bool(np.isfinite(losses).all()), f"finite losses {losses}")
+        check(history[1]["train_loss"] < history[0]["train_loss"],
+              f"epoch 2's train loss below epoch 1's: {losses}")
+        check(trainer.best_epoch == TRAIN_EPOCHS,
+              f"validation loss fell in the last epoch: {losses}")
+        saved = load_theano_checkpoint(trainer.weights_file)
+        params = trainer.params
+        check(saved.keys() == params.keys()
+              and all(torch.equal(saved[k], params[k]) for k in params),
+              "best-only checkpoint == the trainer's params, bit for bit")
+        per_epoch = len(train_idx) // TRAIN_BATCH * TRAIN_BATCH
+        for h in history:
+            print(f"train epoch {h['epoch']}: {h['dur']:.4f} s, "
+                  f"{per_epoch / h['dur']:.1f} samples/s, train_loss "
+                  f"{h['train_loss']:.6f}, valid_loss {h['valid_loss']:.6f}, "
+                  f"valid_accuracy {h['valid_accuracy']:.6f}")
+        print(f"train main path: {steps} steps of {TRAIN_BATCH} + "
+              f"{eval_batches} eval batches, {launches} gather launches")
+        out.update(train_launches=launches, train_steps=steps,
+                   train_eval_batches=eval_batches,
+                   train_epoch_s=[h["dur"] for h in history],
+                   train_samples_per_s=[per_epoch / h["dur"]
+                                        for h in history])
+
+        seg = root / "segment" / "mni01"
+        (seg / "tmp").mkdir(parents=True)
+        save_nii(NiftiImage(image), str(seg / "T1.nii.gz"))
+        save_nii(NiftiImage(atlas),
+                 str(seg / "tmp" / "MNI_sub_probabilities.nii.gz"))
+        save_nii(NiftiImage(roi.astype(np.uint8)),
+                 str(seg / "tmp" / "MNI_subcortical_mask.nii.gz"))
+        engine = SegmentationEngine(saved, Options(
+            test_folder=str(seg.parent), mode="cuda0", debug=False,
+            net_verbose=0))
+        engine.segment_folder()
+        labelled = int((load_nii(str(
+            seg / "out_subcortical_seg_prec.nii.gz")).data != 0).sum())
+        check(labelled > 0, "trained params: non-zero labels")
+        print(f"trained params through segment_folder (dense): {labelled} "
+              "labelled voxels")
+
+        # (b) step times on a pre-staged batch
+        volume = prepare_gather_volume(
+            torch.from_numpy(index.volumes).to(device))
+        rows = torch.from_numpy(train_idx[:TRAIN_BATCH]).to(device)
+        c = torch.from_numpy(index.centers).to(device)[rows].contiguous()
+        lab = torch.from_numpy(index.labels.astype(np.int64)).to(device)[rows]
+        at = torch.from_numpy(index.atlas).to(device)[rows]
+        padded = volume.padded()
+        gen = torch.Generator(device=device).manual_seed(0)
+        net = TriPlanarNet.from_params(params, spec, device, trainable=True)
+        opt = torch.optim.Adam(net.parameters(), **ADAM)
+
+        def step(gather, dtype=None):
+            return lambda: train_step(net, opt, gather(), lab, at, gen,
+                                      compute_dtype=dtype)
+
+        kernel = lambda: gather_triplanar_cuda(volume, c)  # noqa: E731
+        plain = lambda: gather_triplanar_subjects(padded, c)  # noqa: E731
+        for got, want in zip(kernel(), plain()):
+            check(torch.equal(got, want), "train batch: kernel == plain")
+        idx = gather_kernel.window_index(c, padded.shape)
+        times = {
+            "step_f32": time_ms(torch, step(kernel), STEP_ITERS, host=True),
+            "step_bf16": time_ms(torch, step(kernel, torch.bfloat16),
+                                 STEP_ITERS, host=True),
+            "step_plain_gather": time_ms(torch, step(plain), STEP_ITERS,
+                                         host=True),
+            "gather": time_ms(torch, kernel, STEP_ITERS, host=True),
+            "gather_plain": time_ms(torch, plain, STEP_ITERS, host=True),
+            "gather_take": time_ms(torch, lambda: torch.take(padded, idx),
+                                   STEP_ITERS, host=True),
+        }
+
+        # the float32 step by part, on the kernel's patches of the batch
+        views = kernel()
+
+        def forward():
+            net.train()
+            return _forward(net, views, at, gen, None)
+
+        def forward_backward():
+            opt.zero_grad(set_to_none=True)
+            torch.nn.functional.cross_entropy(forward(), lab).backward()
+
+        forward_backward()  # gradients for the optimizer-only timing
+        bns = [m for m in net.modules()
+               if getattr(m, "batch_stats", None) is not None]
+        stats = [m.batch_stats for m in bns]
+
+        def ema():
+            for m, st in zip(bns, stats):
+                m.batch_stats = st
+            update_bn_ema(net)
+
+        with exact_float32():
+            for name, fn in (("forward", forward),
+                             ("forward_backward", forward_backward),
+                             ("adam", opt.step), ("bn_ema", ema)):
+                times[name] = time_ms(torch, fn, STEP_ITERS, host=True)
+        profile = profile_steps(torch, step(kernel))
+        nbytes = gather_roofline_bytes(c, padded.shape)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = {k: v[0] for k, v in times.items()}
+        print(f"train step, batch {TRAIN_BATCH}, full width (CUDA events, "
+              f"{STEP_ITERS} steps): float32 {ms['step_f32']:.4f} ms, "
+              f"bfloat16 {ms['step_bf16']:.4f} ms, float32 with the "
+              f"plain gather {ms['step_plain_gather']:.4f} ms")
+        print("train step parts, (device ms, host enqueue ms) per call: "
+              + ", ".join(f"{k} ({v[0]:.4f}, {v[1]:.4f})"
+                          for k, v in times.items()))
+        print(f"train step profile: {json.dumps(profile)}")
+        print(f"train gather at B={TRAIN_BATCH} on the 3-subject stack: "
+              f"kernel {ms['gather']:.4f} ms, plain "
+              f"{ms['gather_plain']:.4f} ms, torch.take "
+              f"{ms['gather_take']:.4f} ms; bound {bound:.4f} ms "
+              f"({nbytes} bytes), {bound / ms['gather']:.1%} of it; "
+              f"{ms['gather'] / ms['step_f32']:.2%} of the float32 "
+              "step")
+        out.update(train_gather_ms=ms["gather"],
+                   train_gather_plain_ms=ms["gather_plain"],
+                   train_gather_library_ms=ms["gather_take"],
+                   train_gather_bound_ms=bound,
+                   train_step_ms=ms["step_f32"],
+                   train_step_bf16_ms=ms["step_bf16"],
+                   train_step_plain_gather_ms=ms["step_plain_gather"],
+                   train_step_host_ms=times["step_f32"][1],
+                   train_step_profile=profile)
+        del net, opt, volume, padded, idx, views, bns, stats
+
+        # (c) one step on the card and on the CPU, float32 and bfloat16,
+        # from seeded initial params, so every run checks the same numbers
+        # (trained params differ from run to run, and their confident
+        # logits put bfloat16's rounding of one hard sample into the loss)
+        spec0 = dataclasses.replace(spec, dropout_conv=0.0, dropout_fc=0.0)
+        init = init_params(spec0, torch.Generator().manual_seed(0))
+
+        def one_step(dev, dtype=None):
+            net = TriPlanarNet.from_params(init, spec0, dev, trainable=True)
+            opt = torch.optim.Adam(net.parameters(), **ADAM)
+            vol = prepare_gather_volume(
+                torch.from_numpy(index.volumes).to(dev))
+            loss = train_step(net, opt, gather_triplanar_cuda(vol, c.to(dev)),
+                              lab.to(dev), at.to(dev), compute_dtype=dtype)
+            return float(loss), {k: v.cpu() for k, v in
+                                 net.state_dict().items()
+                                 if k.endswith((".mean", ".inv_std"))}
+
+        def differ(a, b):
+            """(relative loss difference, max and mean |EMA difference|)"""
+            diffs = torch.cat([(a[1][k] - b[1][k]).abs() for k in a[1]])
+            return (abs(a[0] - b[0]) / abs(b[0]), float(diffs.max()),
+                    float(diffs.mean()))
+
+        cpu = torch.device("cpu")
+        runs = {(dev.type, dt): one_step(dev, dt) for dev in (device, cpu)
+                for dt in (None, torch.bfloat16)}
+        f32 = differ(runs["cuda", None], runs["cpu", None])
+        bf16 = differ(runs["cuda", torch.bfloat16], runs["cpu", torch.bfloat16])
+        gap = differ(runs["cpu", torch.bfloat16], runs["cpu", None])
+        print(f"train step card vs CPU, float32: loss "
+              f"{runs['cuda', None][0]:.8f} vs {runs['cpu', None][0]:.8f}, "
+              f"relative difference {f32[0]:.3e}; BN EMA max |difference| "
+              f"{f32[1]:.3e}")
+        print(f"train step card vs CPU, bfloat16: loss relative difference "
+              f"{bf16[0]:.3e}, BN EMA max / mean |difference| {bf16[1]:.3e} "
+              f"/ {bf16[2]:.3e}; the CPU's bfloat16 vs float32: "
+              f"{gap[0]:.3e}, {gap[1]:.3e} / {gap[2]:.3e}")
+        check(f32[0] <= CARD_VS_CPU_STEP, f"step loss card vs CPU {f32[0]:.3e}")
+        check(f32[1] <= CARD_VS_CPU_STEP, f"BN EMA card vs CPU {f32[1]:.3e}")
+        check(bf16[0] <= BF16_STEP_LOSS,
+              f"bfloat16 step loss card vs CPU {bf16[0]:.3e} <= "
+              f"{BF16_STEP_LOSS}")
+        check(bf16[2] <= BF16_STEP_SHARE * gap[2],
+              f"bfloat16 BN EMA card vs CPU, mean {bf16[2]:.3e} <= "
+              f"{BF16_STEP_SHARE} x {gap[2]:.3e}")
+        out.update(train_step_card_vs_cpu=f32, train_step_bf16_card_vs_cpu=bf16,
+                   train_step_bf16_vs_f32_cpu=gap)
+
+        # (d) quality on tests/test_trainqual.py's phantom
+        cohort = str(root / "phantom")
+        make_synthetic_cohort(cohort, n_subjects=3, shape=(48, 54, 44),
+                              seed=1, noise=4.0, prior_error=0)
+        qopts = Options(experiment="trainqual", train_folder=cohort,
+                        mode="cuda0", max_epochs=6, patience=8,
+                        batch_size=128, train_split=0.25, net_verbose=0,
+                        load_weights=False, debug=False, seed=1)
+        subjects = list_training_subjects(qopts)
+        q = build_training_index(qopts, subjects=subjects[:2])
+        q = TrainingIndex(q.volumes, q.centers[:4096], q.labels[:4096],
+                          q.atlas[:4096], q.subject_names)
+        qtrainer = Trainer(qopts, spec, weights_path=str(root / "nets"))
+        # deterministic cuDNN algorithms, so the floors see the same
+        # weights in every run (the default backward sums in no fixed order)
+        cudnn = torch.backends.cudnn
+        flags = cudnn.deterministic, cudnn.benchmark
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            qhist = qtrainer.fit(q)
+        finally:
+            cudnn.deterministic, cudnn.benchmark = flags
+        best = min(qhist, key=lambda h: h["valid_loss"])
+        held = Path(subjects[2].t1_path).parent
+        himage = np.asarray(load_nii(str(held / "T1.nii.gz")).data)
+        hgt = np.asarray(load_nii(str(held / "gt_15_classes.nii.gz")).data)
+        hgt = np.where(hgt == 15, 0, hgt).astype(np.uint8)
+        hatlas = np.asarray(load_nii(str(
+            held / "tmp" / "MNI_sub_probabilities.nii.gz")).data, np.float32)
+        hmask = np.asarray(load_nii(str(
+            held / "tmp" / "MNI_subcortical_mask.nii.gz")).data)
+        qnet = TriPlanarNet.from_params(
+            load_theano_checkpoint(qtrainer.weights_file), spec, device)
+        labels, _ = segment_volume(qnet, himage, hatlas,
+                                   candidate_centers(himage, qopts, hmask))
+        dice = mean_dice(labels, hgt)
+        print(f"quality: valid_accuracy by epoch "
+              f"{[round(h['valid_accuracy'], 6) for h in qhist]}, best "
+              f"(epoch {best['epoch']}) {best['valid_accuracy']:.6f}; "
+              f"held-out Dice {dice:.6f}")
+        check(best["valid_accuracy"] >= QUALITY_VALID_ACC,
+              f"best valid_accuracy {best['valid_accuracy']} >= "
+              f"{QUALITY_VALID_ACC}")
+        check(dice >= QUALITY_DICE, f"held-out Dice {dice} >= {QUALITY_DICE}")
+        out.update(quality_valid_accuracy=best["valid_accuracy"],
+                   quality_dice=dice)
+    finally:
+        shutil.rmtree(root)
+
+    # bfloat16 vs float32 labels of the trained MNI weights: a fact for
+    # ROADMAP A3's 0.999 question, not a gate
+    trained = TriPlanarNet.from_params(saved, spec, device)
+    cands = candidate_centers(image, Options(), roi.astype(np.uint8))
+    sel = tuple(cands.T)
+    f32 = segment_volume(trained, image, atlas, cands)[0]
+    bf16 = segment_volume(trained, image, atlas, cands,
+                          compute_dtype="bfloat16")[0]
+    agreement = float(np.mean(f32[sel] == bf16[sel]))
+    print(f"trained MNI weights, bfloat16 vs float32 labels (dense, "
+          f"{len(cands)} candidates): {agreement}")
+    out["trained_bf16_agreement"] = agreement
+    return out
 
 
 def main() -> None:
@@ -437,7 +881,10 @@ def main() -> None:
         check(agreement >= floor, f"bfloat16 vs float32 label agreement, "
               f"{eng}: {agreement} >= {floor}")
 
-    # 11. results
+    # 11. training
+    train = train_phase(torch, device, image, atlas, roi)
+
+    # 12. results
     print(json.dumps({"kernels": [{
         "name": "gather_triplanar",
         "route": "cuda",
@@ -454,6 +901,7 @@ def main() -> None:
         "subjects_ms": uses["subjects"]["ms"],
         "prepare_ms": prepare_ms,
         "uses": uses,
+        **train,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,13 +6,19 @@ package: where it needs a jax-free module of that package (``config``'s
 ``Options`` contract, ``io``'s NIfTI), it keeps its own copy, which the
 tests hold to the original.
 
-Ported so far: the inference path. ``SegmentationEngine`` / ``test_scan``
--> ``segment_volume`` -> the dense à-trous evaluator (``engine="fcn"``,
-what ``"auto"`` picks for a dense candidate set) or the patch engine
-(chunked tri-planar gather -> CNN -> argmax, the gather a hand-written
-CUDA kernel for Hopper, ``ops/csrc/gather_triplanar.cu``), in float32 or
-bfloat16. Options outside the ported slices raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Ported so far: the inference path and training. Inference:
+``SegmentationEngine`` / ``test_scan`` -> ``segment_volume`` -> the dense
+à-trous evaluator (``engine="fcn"``, what ``"auto"`` picks for a dense
+candidate set) or the patch engine (chunked tri-planar gather -> CNN ->
+argmax, the gather a hand-written CUDA kernel for Hopper,
+``ops/csrc/gather_triplanar.cu``), in float32 or bfloat16. Training:
+``build_training_index`` -> ``Trainer.fit`` (Adam, batch-statistics BN with
+Lasagne's EMA, dropout, best-only Theano-format checkpoints through
+``save_theano_checkpoint``), every step gathering its patches with the same
+kernel in subject-stack mode, in float32 or ``train_dtype = bfloat16``.
+Entry points run on the card unless ``Options.mode`` asks for the CPU.
+Options outside the ported slices raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 """
 
 __version__ = "0.1.0"
@@ -22,10 +28,14 @@ from subcort_tpu_torch.config import (Options, load_options,  # noqa: F401
 from subcort_tpu_torch.io import NiftiImage, load_nii, save_nii  # noqa: F401
 from subcort_tpu_torch.engine import (  # noqa: F401
     SegmentationEngine,
+    Trainer,
+    TrainingIndex,
+    build_training_index,
     load_test_names,
     post_process_segmentation,
     segment_volume,
     test_scan,
+    train_split_stratified,
 )
 from subcort_tpu_torch.models import (  # noqa: F401
     TriPlanarNet,
@@ -34,4 +44,5 @@ from subcort_tpu_torch.models import (  # noqa: F401
     load_theano_checkpoint,
     num_params,
     params_from_jax,
+    save_theano_checkpoint,
 )

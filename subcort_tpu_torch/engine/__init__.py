@@ -1,5 +1,15 @@
-"""Workload layer: inference by the dense evaluator or the patch engine."""
+"""Workload layer: inference by the dense evaluator or the patch engine,
+and training."""
 
+from subcort_tpu_torch.engine.data import (  # noqa: F401
+    Subject,
+    TrainingIndex,
+    build_training_index,
+    generate_training_set,
+    leave_one_out,
+    list_training_subjects,
+    load_data,
+)
 from subcort_tpu_torch.engine.forward import forward_centers  # noqa: F401
 from subcort_tpu_torch.engine.infer import (  # noqa: F401
     SegmentationEngine,
@@ -16,4 +26,8 @@ from subcort_tpu_torch.engine.metrics import (  # noqa: F401
 )
 from subcort_tpu_torch.engine.postprocess import (  # noqa: F401
     post_process_segmentation,
+)
+from subcort_tpu_torch.engine.train import (  # noqa: F401
+    Trainer,
+    train_split_stratified,
 )

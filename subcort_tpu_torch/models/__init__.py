@@ -10,6 +10,7 @@ from subcort_tpu_torch.models.fcn import (  # noqa: F401
 from subcort_tpu_torch.models.importer import (  # noqa: F401
     load_theano_checkpoint,
     params_from_jax,
+    save_theano_checkpoint,
 )
 from subcort_tpu_torch.models.triplanar import (  # noqa: F401
     DEFAULT_SPEC,
@@ -17,4 +18,5 @@ from subcort_tpu_torch.models.triplanar import (  # noqa: F401
     TriPlanarSpec,
     init_params,
     num_params,
+    update_bn_ema,
 )

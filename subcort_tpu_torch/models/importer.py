@@ -1,6 +1,7 @@
-"""Parameters from a Theano/Lasagne checkpoint, or from the JAX package.
+"""Parameters to and from a Theano/Lasagne checkpoint, or from the JAX
+package.
 
-Port of subcort_tpu/models/importer.py (the import half). The reference's
+Port of subcort_tpu/models/importer.py. The reference's
 checkpoint is a Python-2 pickle of an OrderedDict from Lasagne layer name
 to parameter list (``nets/miccai2012_v1/miccai2012_v1.pkl``). Versus the
 JAX importer:
@@ -19,6 +20,7 @@ into the port's state dict.
 
 from __future__ import annotations
 
+import collections
 import pickle
 from typing import Any, Mapping
 
@@ -39,7 +41,8 @@ def load_theano_checkpoint(path: str) -> Params:
     """Read a reference-format pickle into the port's state dict.
 
     Works on the shipped py2 pickle (``encoding='latin1'``) and on pickles
-    written by ``subcort_tpu.models.importer.save_theano_checkpoint``.
+    written by :func:`save_theano_checkpoint` or by the JAX package's
+    ``save_theano_checkpoint``.
     Shapes come from the file; the d1 rows need no spec, since both sides
     flatten (c, h, w).
     """
@@ -69,6 +72,59 @@ def load_theano_checkpoint(path: str) -> Params:
         if prelu:
             params[prelu] = _t(raw[prelu][0])
     return params
+
+
+def save_theano_checkpoint(params: Params, path: str) -> None:
+    """Write the port's state dict as a reference-format pickle, the inverse
+    of :func:`load_theano_checkpoint` (importer.py:113-155): conv kernels
+    flipped back to true convolutions, dense weights in Lasagne's (in, out)
+    layout, and the reference's parameterless layer keys in the JAX
+    package's order, pickle protocol 2. The JAX package's
+    ``load_theano_checkpoint`` reads the file, as the reference's tooling
+    does."""
+    out: "collections.OrderedDict[str, list]" = collections.OrderedDict()
+
+    def np32(key: str, flip: bool = False, transpose: bool = False):
+        a = params[key].detach().cpu().numpy().astype(np.float32)
+        if flip:
+            a = a[:, :, ::-1, ::-1]
+        if transpose:
+            a = a.T
+        return np.ascontiguousarray(a)
+
+    for view, inp in zip(VIEWS, ("in1", "in2", "in3")):
+        r = _REF_VIEW[view]
+        out[inp] = []
+        for i in range(1, 6):
+            out[f"{r}_ch_conv{i}"] = [np32(f"{view}.conv{i}.weight",
+                                           flip=True)]
+            out[f"{r}_ch_conv{i}_bn"] = [np32(f"{view}.bn{i}.{name}") for name
+                                         in ("beta", "gamma", "mean",
+                                             "inv_std")]
+            out[f"{r}_ch_conv{i}_bn_nonlin"] = []
+            out[f"{r}_ch_prelu{i}"] = [np32(f"{view}.prelu{i}")]
+            if i == 2:
+                out[f"{r}_max_pool_1"] = []
+            if i == 4:
+                out[f"{r}_max_pool_2"] = []
+        out[f"{r}_l1drop"] = []
+        out[f"{r}_d1"] = [np32(f"{view}.d1.weight", transpose=True),
+                          np32(f"{view}.d1.bias")]
+        out[f"{r}_prelu_d1"] = [np32(f"{view}.prelu_d1")]
+
+    out["elem_channels"] = []
+    out["f1_drop"] = []
+    out["FC1"] = [np32("fc1.weight", transpose=True), np32("fc1.bias")]
+    out["prelu_f1"] = [np32("prelu_f1")]
+    out["f2_drop"] = []
+    out["in4"] = []
+    out["elem_channels2"] = []
+    out["fc_2"] = [np32("fc2.weight", transpose=True), np32("fc2.bias")]
+    out["prelu_f2"] = [np32("prelu_f2")]
+    out["out_layer"] = [np32("out.weight", transpose=True), np32("out.bias")]
+
+    with open(path, "wb") as fh:
+        pickle.dump(out, fh, protocol=2)
 
 
 def params_from_jax(tree: Mapping[str, Any],

@@ -1,6 +1,6 @@
-"""Tri-planar voxelwise CNN in PyTorch, inference mode.
+"""Tri-planar voxelwise CNN in PyTorch, in inference and training mode.
 
-Port of subcort_tpu/models/triplanar.py (``apply`` with ``train=False``);
+Port of subcort_tpu/models/triplanar.py (``apply``, ``update_bn_ema``);
 architecture per the reference, cnn_cort/nets.py:159-231. Three identical
 2D branches, each on one (N, 1, 32, 32) view:
 
@@ -11,22 +11,32 @@ architecture per the reference, cnn_cort/nets.py:159-231. Three identical
     conv 3x3 x40 -> BN -> PReLU    (12->10)
     maxpool 2                      (10->5)
     conv 3x3 x60 -> BN -> PReLU    (5->3)
+    dropout 0.5
     dense 540->180 -> PReLU
 
-Head: concat(3x180) -> FC 540->540 -> PReLU -> concat(+15 atlas) ->
-FC 555->270 -> PReLU -> FC 270->15 -> softmax. 883,455 parameters.
+Head: concat(3x180) -> dropout -> FC 540->540 -> PReLU -> dropout ->
+concat(+15 atlas) -> FC 555->270 -> PReLU -> FC 270->15 -> softmax.
+883,455 parameters.
 
-Lasagne semantics kept: convs carry no bias (BN follows); BN uses the
-*stored* inv_std, ``(x - mean) * (inv_std * gamma) + beta``; PReLU alpha
-per channel / unit; dropout is the identity at inference. Layout is NCHW
-inside, so the flatten before ``d1`` is already Lasagne's (c, h, w) order.
-Conv weights are OIHW cross-correlation kernels (the importer flips the
-reference's true-convolution kernels).
+Lasagne semantics kept: convs carry no bias (BN follows); BN at inference
+uses the *stored* inv_std, ``(x - mean) * (inv_std * gamma) + beta``; in
+training it uses the batch's mean and biased variance over (N, H, W),
+``inv_std = rsqrt(var + 1e-4)``, and records (mean, inv_std) for
+:func:`update_bn_ema`, which keeps Lasagne's running averages of mean and
+inv_std (not ``nn.BatchNorm2d``'s unbiased variance); below float32 both
+round as the JAX package's ops round them. PReLU alpha per
+channel / unit. Dropout is inverted dropout drawn from an explicit
+``torch.Generator`` (never torch's global one), the identity at inference,
+and never on the atlas. Layout is NCHW inside, so the flatten before
+``d1`` is already Lasagne's (c, h, w) order. Conv weights are OIHW
+cross-correlation kernels (the importer flips the reference's
+true-convolution kernels).
 
 Parameters are plain state dicts whose keys follow the JAX params tree
 (``axial.conv1.weight``, ``axial.bn1.inv_std``, ``head`` layers at the top
-level); :func:`init_params` makes one, :meth:`TriPlanarNet.from_params`
-loads one onto a device.
+level); BN mean and inv_std are buffers, the rest parameters.
+:func:`init_params` makes one; :meth:`TriPlanarNet.from_params` loads one
+onto a device, for inference or, with ``trainable=True``, for training.
 """
 
 from __future__ import annotations
@@ -84,18 +94,56 @@ DEFAULT_SPEC = TriPlanarSpec()
 
 
 class _BatchNorm(nn.Module):
-    """Lasagne BatchNormLayer at inference, with the stored inv_std."""
+    """Lasagne BatchNormLayer: the stored (mean, inv_std) at inference; in
+    training the batch's statistics, kept in ``batch_stats`` for
+    :func:`update_bn_ema`."""
 
-    def __init__(self, channels: int, device=None):
+    def __init__(self, channels: int, epsilon: float, device=None):
         super().__init__()
+        self.epsilon = epsilon
         self.beta = nn.Parameter(torch.zeros(channels, device=device))
         self.gamma = nn.Parameter(torch.ones(channels, device=device))
         self.register_buffer("mean", torch.zeros(channels, device=device))
         self.register_buffer("inv_std", torch.ones(channels, device=device))
+        self.batch_stats = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            # the batch's mean and inv_std = rsqrt(biased variance + eps)
+            # over (N, H, W) (triplanar.py:246-252); torch keeps no running
+            # statistics here: update_bn_ema does
+            if x.dtype == torch.float32:
+                # one fused pass
+                y, mean, inv_std = torch.native_batch_norm(
+                    x, self.gamma, self.beta, None, None, True, 0.0,
+                    self.epsilon)
+            else:
+                # below float32, the JAX package's rounding: mean and
+                # variance rounded to x's dtype, then each op rounded to it
+                # (rsqrt taken in float32: torch's bfloat16 rsqrt on the
+                # CPU is 1 / sqrt, rounded twice)
+                var, mean = torch.var_mean(x, (0, 2, 3), correction=0)
+                inv_std = torch.rsqrt((var + self.epsilon).float()).to(x.dtype)
+                y = ((x - mean[:, None, None])
+                     * (inv_std * self.gamma)[:, None, None]
+                     + self.beta[:, None, None])
+            self.batch_stats = (mean.detach(), inv_std.detach())
+            return y
         scale = (self.inv_std * self.gamma)[:, None, None]
         return (x - self.mean[:, None, None]) * scale + self.beta[:, None, None]
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with its mask drawn from ``generator``: a kept value
+    is scaled by 1 / (1 - rate), a dropped one is 0 (triplanar.py:255-258).
+    ``F.dropout`` would draw from torch's global generator."""
+    if rate == 0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.bernoulli(torch.empty(x.shape, device=x.device), keep,
+                           generator=generator)
+    return torch.where(mask.bool(), x / keep, 0.0).to(x.dtype)
 
 
 class _Branch(nn.Module):
@@ -103,11 +151,13 @@ class _Branch(nn.Module):
 
     def __init__(self, spec: TriPlanarSpec, device=None):
         super().__init__()
+        self.dropout = spec.dropout_conv
         c_in = spec.num_channels
         for i, c_out in enumerate(spec.conv_filters, start=1):
             setattr(self, f"conv{i}", nn.Conv2d(c_in, c_out, 3, bias=False,
                                                 device=device))
-            setattr(self, f"bn{i}", _BatchNorm(c_out, device=device))
+            setattr(self, f"bn{i}",
+                    _BatchNorm(c_out, spec.bn_epsilon, device=device))
             setattr(self, f"prelu{i}",
                     nn.Parameter(torch.full((c_out,), 0.25, device=device)))
             c_in = c_out
@@ -115,19 +165,24 @@ class _Branch(nn.Module):
         self.prelu_d1 = nn.Parameter(torch.full((spec.fc_conv,), 0.25,
                                                 device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in (1, 2, 3, 4, 5):
             x = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x))
             x = F.prelu(x, getattr(self, f"prelu{i}"))
             if i in (2, 4):
                 x = F.max_pool2d(x, 2)
+        if self.training:
+            x = dropout(x, self.dropout, generator)
         return F.prelu(self.d1(x.flatten(1)), self.prelu_d1)
 
 
 class TriPlanarNet(nn.Module):
     """The tri-planar CNN. ``forward`` takes the JAX package's layout: three
     (N, ps, ps) patch stacks and the (N, 15) atlas prior vectors; it returns
-    softmax probabilities, or logits with ``return_logits``."""
+    softmax probabilities, or logits with ``return_logits``. In training
+    mode (``net.train()``) BN uses batch statistics and dropout draws from
+    ``generator``, in the order axial, coronal, sagittal, concat, fc1."""
 
     def __init__(self, spec: TriPlanarSpec = DEFAULT_SPEC, device=None):
         super().__init__()
@@ -146,34 +201,72 @@ class TriPlanarNet(nn.Module):
 
     @classmethod
     def from_params(cls, params: Params, spec: TriPlanarSpec = DEFAULT_SPEC,
-                    device: torch.device | str = "cpu") -> "TriPlanarNet":
-        """An inference-mode net on ``device`` holding ``params``. The
-        modules are made on the meta device first, so building a net draws
-        nothing from torch's global random generator."""
+                    device: torch.device | str | None = None,
+                    trainable: bool = False) -> "TriPlanarNet":
+        """A net on ``device`` holding ``params``: in inference mode with
+        no gradients, or with ``trainable`` in training mode with gradients
+        on every parameter. ``device=None`` is ``select_device(Options())``,
+        the first CUDA device; without one it raises. The modules are made
+        on the meta device first, so building a net draws nothing from
+        torch's global random generator."""
+        if device is None:
+            # imported here: config imports nothing of the models
+            from subcort_tpu_torch.config import Options, select_device
+            device = select_device(Options())
         net = cls(spec, device="meta").to_empty(device=device)
         net.load_state_dict(params)
+        if trainable:
+            return net.train()
         return net.eval().requires_grad_(False)
 
     def forward(self, axial: torch.Tensor, coronal: torch.Tensor,
                 sagittal: torch.Tensor, atlas: torch.Tensor,
-                return_logits: bool = False) -> torch.Tensor:
-        fa = self.axial(axial.unsqueeze(1))
-        fc = self.coronal(coronal.unsqueeze(1))
-        fs = self.sagittal(sagittal.unsqueeze(1))
-        logits = self.head(torch.cat([fa, fc, fs], dim=1), atlas)
+                return_logits: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        fa = self.axial(axial.unsqueeze(1), generator)
+        fc = self.coronal(coronal.unsqueeze(1), generator)
+        fs = self.sagittal(sagittal.unsqueeze(1), generator)
+        logits = self.head(torch.cat([fa, fc, fs], dim=1), atlas, generator)
         if return_logits:
             return logits
         return torch.softmax(logits, dim=-1)
 
-    def head(self, features: torch.Tensor, atlas: torch.Tensor) -> torch.Tensor:
+    def head(self, features: torch.Tensor, atlas: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Logits from the (N, 3 * fc_conv) branch features, concatenated
         axial, coronal, sagittal, and the (N, 15) atlas prior vectors; the
         dense evaluator shares it (models/fcn.py)."""
+        if self.training:
+            features = dropout(features, self.spec.dropout_fc, generator)
         x = F.prelu(self.fc1(features), self.prelu_f1)
+        if self.training:
+            x = dropout(x, self.spec.dropout_fc, generator)
         # the atlas prior joins without dropout (nets.py:222-223)
         x = torch.cat([x, atlas.to(x.dtype)], dim=1)
         x = F.prelu(self.fc2(x), self.prelu_f2)
         return self.out(x)
+
+
+@torch.no_grad()
+def update_bn_ema(net: TriPlanarNet) -> None:
+    """Fold each BN layer's last batch statistics into its stored (mean,
+    inv_std): stored = (1 - alpha) * stored + alpha * batch, Lasagne's
+    running average (triplanar.py:351-366), in place. The stored values
+    stay float32; ``alpha * batch`` is taken in the batch's dtype, alpha
+    rounded to it, as the JAX package takes it. Layers without new
+    statistics keep theirs; the statistics are consumed."""
+    stored, batch = [], []
+    for m in net.modules():
+        if isinstance(m, _BatchNorm) and m.batch_stats is not None:
+            stored += [m.mean, m.inv_std]
+            batch += m.batch_stats
+            m.batch_stats = None
+    if stored:
+        a = net.spec.bn_alpha
+        a_batch = torch.tensor(a, dtype=batch[0].dtype).item()
+        torch._foreach_mul_(stored, 1 - a)
+        torch._foreach_add_(stored, [t.to(s.dtype) for s, t in zip(
+            stored, torch._foreach_mul(batch, a_batch))])
 
 
 def init_params(spec: TriPlanarSpec = DEFAULT_SPEC,

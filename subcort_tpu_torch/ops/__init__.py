@@ -1,5 +1,5 @@
-"""Data-path ops: normalization, voxel enumeration and the tri-planar
-gather (plain version and CUDA kernel)."""
+"""Data-path ops: normalization, voxel sampling and the tri-planar gather
+(plain version, numpy twin and CUDA kernel)."""
 
 from subcort_tpu_torch.ops.gather_kernel import (  # noqa: F401
     GatherVolume,
@@ -13,7 +13,12 @@ from subcort_tpu_torch.ops.patches import (  # noqa: F401
     HALF,
     PATCH,
     gather_triplanar,
+    gather_triplanar_np,
     gather_triplanar_subjects,
     pad_volume,
 )
-from subcort_tpu_torch.ops.sampling import get_mask_voxels  # noqa: F401
+from subcort_tpu_torch.ops.sampling import (  # noqa: F401
+    balanced_negative_sample,
+    get_mask_voxels,
+    shuffle_consistent,
+)

@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from subcort_tpu_torch.config import not_ported
 from subcort_tpu_torch.ops.patches import (HALF, PATCH, Patches,
                                            gather_triplanar,
                                            gather_triplanar_subjects)
@@ -200,15 +201,18 @@ def _check_prepared(vol: GatherVolume, centers: torch.Tensor) -> None:
 
 
 def gather_triplanar_cuda(volume: torch.Tensor | GatherVolume,
-                          centers: torch.Tensor) -> Patches:
-    """(axial, coronal, sagittal), three contiguous (N, 32, 32) float32.
+                          centers: torch.Tensor,
+                          patch: int = PATCH) -> Patches:
+    """(axial, coronal, sagittal), three contiguous (N, patch, patch)
+    float32.
 
     ``volume``: on the card, a :class:`GatherVolume` from
     :func:`prepare_gather_volume`; on the CPU, that or the float32 volume
     zero-padded by 16, (X', Y', Z') or (S, X', Y', Z'). ``centers``: int32
     (N, 3), or (N, 4) for a stack, in original coordinates, on the same
     device; the caller keeps them inside the volume. CPU tensors take the
-    plain version; CUDA tensors launch the kernel.
+    plain version; CUDA tensors launch the kernel, which takes 32x32
+    windows only, as the TPU kernel did: another ``patch`` raises there.
     """
     global LAUNCHES
     if isinstance(volume, GatherVolume):
@@ -219,8 +223,11 @@ def gather_triplanar_cuda(volume: torch.Tensor | GatherVolume,
         padded = (volume.padded() if isinstance(volume, GatherVolume)
                   else volume)
         if padded.dim() == 3:
-            return gather_triplanar(padded, centers)
-        return gather_triplanar_subjects(padded, centers)
+            return gather_triplanar(padded, centers, patch)
+        return gather_triplanar_subjects(padded, centers, patch)
+    if patch != PATCH:
+        raise not_ported(f"a {patch}x{patch} gather on the card (the kernel "
+                         "is 32x32 only)", "item 5, training")
     if not isinstance(volume, GatherVolume):
         raise ValueError("on the card the kernel reads the layouts of "
                          "prepare_gather_volume(padded), not the padded "

@@ -1,10 +1,11 @@
-"""Tri-planar patch gather: the plain PyTorch version.
+"""Tri-planar patch gather: the plain PyTorch version, and the numpy twin.
 
-Port of subcort_tpu/ops/patches.py (single volume) and
-subcort_tpu/engine/train.py::gather_triplanar_subjects (subject stack).
-These are the plain versions of the hand-written CUDA kernel in
-``ops/gather_kernel.py``: the CPU path runs them, and the card compares the
-kernel with them.
+Port of subcort_tpu/ops/patches.py (single volume, and the numpy
+``gather_triplanar_np`` behind ``engine/data.py::generate_training_set``)
+and subcort_tpu/engine/train.py::gather_triplanar_subjects (subject stack).
+The torch functions are the plain versions of the hand-written CUDA kernel
+in ``ops/gather_kernel.py``: the CPU path runs them, and the card compares
+the kernel with them.
 
 Semantics (the reference's ``get_patches``, base.py:272-308): a patch for
 center ``c`` spans ``[c - 16, c + 16)`` per axis and is zero outside the
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -32,10 +34,10 @@ def pad_volume(vol: torch.Tensor, half: int = HALF) -> torch.Tensor:
     return F.pad(vol, (half,) * 6).contiguous()
 
 
-def _windows(centers: torch.Tensor, patch: int):
+def _windows(centers: torch.Tensor, patch: int, shift: int = 0):
     c = centers.long()
     offs = torch.arange(patch, device=c.device)
-    starts = c[:, -3:]
+    starts = c[:, -3:] + shift
     xs, ys, zs = (starts[:, k, None] + offs for k in range(3))
     xc, yc, zc = (starts[:, k] + patch // 2 for k in range(3))
     return c, xs, ys, zs, xc, yc, zc
@@ -55,10 +57,31 @@ def gather_triplanar(padded: torch.Tensor, centers: torch.Tensor,
 def gather_triplanar_subjects(volumes: torch.Tensor, centers: torch.Tensor,
                               patch: int = PATCH) -> Patches:
     """Subject-stack form: ``volumes`` (S, X', Y', Z'), each subject padded
-    by ``patch // 2``; ``centers`` (N, 4) rows (subject, x, y, z)."""
-    c, xs, ys, zs, xc, yc, zc = _windows(centers, patch)
+    by 16 (``HALF``, as ``build_training_index`` pads); ``centers`` (N, 4)
+    rows (subject, x, y, z). The window for center ``c`` spans original
+    ``[c - patch//2, c + patch - patch//2)``, so it starts at padded
+    ``c + 16 - patch//2``."""
+    c, xs, ys, zs, xc, yc, zc = _windows(centers, patch, HALF - patch // 2)
     sb = c[:, 0, None, None]
     axial = volumes[sb, xs[:, :, None], ys[:, None, :], zc[:, None, None]]
     coronal = volumes[sb, xs[:, :, None], yc[:, None, None], zs[:, None, :]]
     sagittal = volumes[sb, xc[:, None, None], ys[:, :, None], zs[:, None, :]]
+    return axial, coronal, sagittal
+
+
+def gather_triplanar_np(vol: np.ndarray, centers: np.ndarray,
+                        patch: int = PATCH):
+    """Numpy twin of :func:`gather_triplanar` on an unpadded (X, Y, Z)
+    volume, which it pads itself (copy of ops/patches.py:86-101)."""
+    half = patch // 2
+    padded = np.pad(vol, half)
+    centers = np.asarray(centers)
+    cx, cy, cz = centers[:, 0], centers[:, 1], centers[:, 2]
+    offs = np.arange(patch)
+    xs = cx[:, None] + offs
+    ys = cy[:, None] + offs
+    zs = cz[:, None] + offs
+    axial = padded[xs[:, :, None], ys[:, None, :], (cz + half)[:, None, None]]
+    coronal = padded[xs[:, :, None], (cy + half)[:, None, None], zs[:, None, :]]
+    sagittal = padded[(cx + half)[:, None, None], ys[:, :, None], zs[:, None, :]]
     return axial, coronal, sagittal

@@ -1,5 +1,5 @@
-"""Card-only tests of the port: its CUDA gather kernel, and the engines on
-the card against the CPU; each skips without a CUDA device.
+"""Card-only tests of the port: its CUDA gather kernel, the engines and the
+train step on the card against the CPU; each skips without a CUDA device.
 
 This file imports no jax and uses no conftest fixture, so it runs on a
 machine that has torch and no jax:
@@ -8,15 +8,20 @@ machine that has torch and no jax:
 
 The kernel is held bit-equal (``torch.equal``) to its plain PyTorch version
 on the same card tensors: a gather does no arithmetic. The engines run
-float32 with TF32 off whatever the caller's global flags say.
+float32 with TF32 off whatever the caller's global flags say, and so does
+the train step.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from subcort_tpu_torch.config import Options
+from subcort_tpu_torch.engine import Trainer, TrainingIndex, segment_volume
+from subcort_tpu_torch.engine.train import ADAM, train_step
 from subcort_tpu_torch.models import TriPlanarNet, TriPlanarSpec, init_params
-from subcort_tpu_torch.engine import segment_volume
 from subcort_tpu_torch.models import fcn
 from subcort_tpu_torch.ops import gather_kernel
 from subcort_tpu_torch.ops.gather_kernel import (gather_triplanar_cuda,
@@ -199,3 +204,145 @@ def test_segment_volume_ignores_global_tf32(cuda_device, engine):
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
     np.testing.assert_array_equal(probs[True], probs[False])
+
+
+NARROW_NO_DROPOUT = dataclasses.replace(NARROW, dropout_conv=0.0,
+                                        dropout_fc=0.0)
+
+
+def _train_batch(seed=3, b=64, subjects=2, extent=(20, 22, 18)):
+    rng = np.random.default_rng(seed)
+    vols = rng.standard_normal(
+        (subjects,) + tuple(e + 32 for e in extent)).astype(np.float32)
+    centers = np.stack([rng.integers(0, subjects, b)]
+                       + [rng.integers(0, e, b) for e in extent],
+                       1).astype(np.int32)
+    labels = rng.integers(0, 15, b)
+    atlas = rng.random((b, 15)).astype(np.float32)
+    return vols, centers, labels, atlas
+
+
+def _step(params, device, vols, centers, labels, atlas, plain=False,
+          spec=NARROW_NO_DROPOUT, dtype=None):
+    """One train step on ``device`` from ``params``: the kernel's gather on
+    the card, or with ``plain`` the plain gather of the padded stack."""
+    net = TriPlanarNet.from_params(params, spec, device, trainable=True)
+    optimizer = torch.optim.Adam(net.parameters(), **ADAM)
+    c = torch.from_numpy(centers).to(device)
+    padded = torch.from_numpy(vols).to(device)
+    if plain:
+        views = gather_triplanar_subjects(padded, c)
+    else:
+        views = gather_triplanar_cuda(prepare_gather_volume(padded), c)
+    loss = train_step(net, optimizer, views,
+                      torch.from_numpy(labels).to(device),
+                      torch.from_numpy(atlas).to(device), compute_dtype=dtype)
+    grads = {k: p.grad.cpu() for k, p in net.named_parameters()}
+    return loss.cpu(), grads, {k: v.cpu() for k, v in net.state_dict().items()}
+
+
+@pytest.mark.cuda
+def test_train_step_card_matches_cpu(cuda_device):
+    """One float32 step (narrow net, dropout 0) on the card and on the CPU:
+    loss within 1e-5, gradients within rtol 1e-4 / atol 1e-6, the BN EMA
+    within 1e-6, and the parameters after Adam within 1e-6 where the
+    gradient exceeds 1e-5 (elsewhere Adam's first move, about lr * sign(g),
+    may flip with a near-zero gradient: within 2 lr)."""
+    batch = _train_batch()
+    params = init_params(NARROW_NO_DROPOUT, torch.Generator().manual_seed(0))
+    before = gather_kernel.LAUNCHES
+    card = _step(params, cuda_device, *batch)
+    assert gather_kernel.LAUNCHES == before + 1
+    cpu = _step(params, torch.device("cpu"), *batch)
+    np.testing.assert_allclose(float(card[0]), float(cpu[0]), rtol=1e-5)
+    for k, g in cpu[1].items():
+        np.testing.assert_allclose(card[1][k].numpy(), g.numpy(), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+        diff = (card[2][k] - cpu[2][k]).abs()
+        assert (diff[g.abs() > 1e-5] <= 1e-6).all(), k
+        assert (diff <= 2 * ADAM["lr"]).all(), k
+    for k, v in cpu[2].items():
+        if k.endswith((".mean", ".inv_std")):
+            np.testing.assert_allclose(card[2][k].numpy(), v.numpy(),
+                                       rtol=0, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_bfloat16_train_step_card_matches_cpu(cuda_device):
+    """One bfloat16 step (narrow net, dropout 0) on the card and on the CPU,
+    whose step tests/test_torch_train.py holds to the JAX package's: the
+    mean |BN EMA difference| within a quarter of the CPU's own bfloat16 vs
+    float32 one, so a card step that ran in float32 fails, and the loss
+    within 1e-3 relative, a quarter of bfloat16's 2^-8 step. (The loss
+    alone cannot tell the dtypes apart: on this batch the CPU's bfloat16
+    and float32 losses differ by 1.75e-5 relative.)"""
+    batch = _train_batch(seed=7)
+    params = init_params(NARROW_NO_DROPOUT, torch.Generator().manual_seed(3))
+    cpu = torch.device("cpu")
+    card16 = _step(params, cuda_device, *batch, dtype=torch.bfloat16)
+    cpu16 = _step(params, cpu, *batch, dtype=torch.bfloat16)
+    cpu32 = _step(params, cpu, *batch)
+
+    def differ(a, b):
+        ema = torch.cat([(a[2][k] - b[2][k]).abs() for k in b[2]
+                         if k.endswith((".mean", ".inv_std"))])
+        return abs(float(a[0]) - float(b[0])) / float(b[0]), float(ema.mean())
+
+    got, gap = differ(card16, cpu16), differ(cpu16, cpu32)
+    assert gap[0] > 0 and gap[1] > 0
+    assert got[0] <= 1e-3, (got, gap)
+    assert got[1] <= 0.25 * gap[1], (got, gap)
+
+
+@pytest.mark.cuda
+def test_train_step_kernel_gather_equals_plain_gather(cuda_device):
+    """The same step with the kernel's gather and with the plain gather on
+    the card: the patches are bit-equal, so the loss is too."""
+    batch = _train_batch(seed=4)
+    params = init_params(NARROW_NO_DROPOUT, torch.Generator().manual_seed(1))
+    kernel = _step(params, cuda_device, *batch)
+    plain = _step(params, cuda_device, *batch, plain=True)
+    assert torch.equal(kernel[0], plain[0])
+
+
+@pytest.mark.cuda
+def test_trainer_fit_launches_the_kernel_every_step(cuda_device, tmp_path):
+    """Trainer.fit on the card (the default mode): the gather kernel runs at
+    least once per train step and once per eval batch."""
+    vols, centers, labels, atlas = _train_batch(seed=5, b=200)
+    index = TrainingIndex(vols, centers, labels.astype(np.int32), atlas,
+                          ["a", "b"])
+    options = Options(experiment="card", batch_size=32, max_epochs=2,
+                      patience=5, train_split=0.25, net_verbose=0,
+                      load_weights=False, seed=2)
+    trainer = Trainer(options, spec=NARROW, weights_path=str(tmp_path))
+    assert next(trainer.net.parameters()).device == cuda_device
+    before = gather_kernel.LAUNCHES
+    history = trainer.fit(index)
+    n_valid = sum(-(-int(np.sum(labels == c)) // 4)
+                  for c in np.unique(labels))
+    steps = (len(labels) - n_valid) // 32
+    assert gather_kernel.LAUNCHES - before >= 2 * (steps + 1)
+    assert all(np.isfinite(h["train_loss"]) for h in history)
+
+
+@pytest.mark.cuda
+def test_train_step_ignores_global_tf32(cuda_device):
+    """With TF32 allowed globally, a train step's loss equals a TF32-off
+    step's bit for bit, and the caller's flags are as they were after."""
+    batch = _train_batch(seed=6)
+    spec = TriPlanarSpec(dropout_conv=0.0, dropout_fc=0.0)
+    params = init_params(spec, torch.Generator().manual_seed(2))
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    losses = {}
+    try:
+        for tf32 in (False, True):
+            cudnn.allow_tf32 = matmul.allow_tf32 = tf32
+            losses[tf32] = _step(params, cuda_device, *batch,
+                                 spec=spec)[0]
+            assert (cudnn.allow_tf32, matmul.allow_tf32) == (tf32, tf32)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    assert torch.equal(losses[True], losses[False])
+

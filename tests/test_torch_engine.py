@@ -55,7 +55,7 @@ def params(jax_params):
 
 @pytest.fixture(scope="module")
 def net(params):
-    return TriPlanarNet.from_params(params)
+    return TriPlanarNet.from_params(params, device="cpu")
 
 
 @pytest.fixture()

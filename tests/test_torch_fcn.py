@@ -58,7 +58,7 @@ def jax_params():
 
 @pytest.fixture(scope="module")
 def net(jax_params):
-    return TriPlanarNet.from_params(params_from_jax(jax_params))
+    return TriPlanarNet.from_params(params_from_jax(jax_params), device="cpu")
 
 
 @pytest.fixture()

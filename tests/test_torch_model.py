@@ -40,7 +40,7 @@ def _batch(rng, n=64):
 
 
 def _port_probs(params, views, atlas, **kw):
-    net = TriPlanarNet.from_params(params)
+    net = TriPlanarNet.from_params(params, device="cpu")
     with torch.inference_mode():
         out = net(*(torch.from_numpy(v) for v in views),
                   torch.from_numpy(atlas), **kw)
@@ -117,7 +117,7 @@ def test_net_build_draws_no_global_randomness():
     torch.manual_seed(3)
     before = torch.get_rng_state()
     TriPlanarNet.from_params(init_params(
-        generator=torch.Generator().manual_seed(1)))
+        generator=torch.Generator().manual_seed(1)), device="cpu")
     assert torch.equal(torch.get_rng_state(), before)
 
 
@@ -134,3 +134,17 @@ def test_select_device_cuda_never_falls_back(mode):
         pytest.skip("a CUDA device is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="(?i)cuda"):
         select_device(Options(mode=mode))
+
+
+def test_from_params_without_a_device_asks_for_the_card():
+    """``from_params`` with no device builds on ``select_device(Options())``,
+    cuda:0; without a CUDA device it raises and never falls back to the
+    CPU."""
+    params = init_params(generator=torch.Generator().manual_seed(1))
+    if torch.cuda.is_available():
+        net = TriPlanarNet.from_params(params)
+        assert next(net.parameters()).device == torch.device("cuda", 0)
+        return
+    with pytest.raises(RuntimeError, match="(?i)cuda"):
+        TriPlanarNet.from_params(params)
+
