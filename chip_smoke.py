@@ -73,7 +73,38 @@ and the exit code is non-zero:
        segment_volume. Prints, without a gate, bfloat16 vs
        float32 label agreement of the trained MNI weights on the phase-4
        scan;
-12. one JSON line of kernel facts, then the last line
+12. registration with backend="torch" on the card, float32, TF32 off:
+   (a) the resampler card vs CPU: the 15-channel MNI-sized prior volume
+       (427 MB) through resample_through_cpp (a seeded smooth control grid
+       at 10 mm) and resample_through_affine, max |difference| <= 1e-4 of
+       the value range; CUDA-event ms of each device program and GB/s
+       against the bytes read and written;
+   (b) quality on bench_reg.py's phantoms (64x72x60; this script's own
+       copies): FFD SSD on the same-intensity subject, FFD NMI on the
+       remapped one (spacing_mm=6, iters=(60, 10)), the 12-dof affine on
+       the affine phantom: structure Dice >= 0.93 and, for the FFDs, min
+       det(J)/det(A) > 0.05, the identity Dice beside them; the SSD fit
+       again on the card (are two runs bit-equal?) and on the CPU (Dice
+       within 0.01, final loss within 2%); torch.profiler over a short fit:
+       no index_put kernel (the floating image takes no gradient);
+   (c) full width through the entry points: an MNI-sized template and
+       15-channel atlas in a temporary atlas directory (the phase-4
+       subject and priors under a known 12-dof misalignment plus a smooth
+       warp of a few voxels, the template's intensities remapped), and a
+       copy of the phase-4 subject with NO tmp/ directory through
+       SegmentationEngine.segment_folder with reg_backend = torch,
+       reg_similarity = nmi and no register_fn, at the default iterations.
+       Checks: the six tmp/ files and their shapes, transform.nii reloads,
+       min det(J)/det(A) > 0, the warped template's NMI against the
+       subject rose, the warped priors' ROI Dice against the phase-4 ROI
+       >= REG_MNI_DICE (the identity Dice beside it), a segmentation with
+       non-zero labels, a second register_masks call under 1 s. Prints
+       seconds per stage, ms per optimiser iteration at each level (CUDA
+       events beside the host's enqueue ms) and peak device memory per
+       stage;
+   (d) the priors-miss path of training: build_training_index on one
+       phantom subject without tmp/, reg_backend = torch;
+13. one JSON line of kernel facts, then the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -81,6 +112,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -137,6 +169,24 @@ KERNEL_PARTS = (
     ("dropout masks", ("bernoulli", "distribution")),
 )
 QUALITY_VALID_ACC, QUALITY_DICE = 0.90, 0.85
+# registration (phase 12); the floors of (b) are bench_reg.py's
+REG_RESAMPLE_TOL = 1e-4
+REG_DICE_FLOOR, REG_MIN_JAC_FLOOR = 0.93, 0.05
+REG_CARD_VS_CPU_DICE, REG_CARD_VS_CPU_LOSS = 0.01, 0.02
+REG_MNI_DICE = 0.995
+# device kernels of one optimiser iteration by kind, first match wins
+REG_KERNEL_PARTS = (
+    ("gathers (trilinear corners)", ("index", "gather")),
+    ("matmuls (cuBLAS: B-spline contractions, histogram)",
+     ("gemm", "gemv", "cutlass", "cublas")),
+    ("reductions", ("reduce",)),
+    ("copies and concatenations", ("copy", "cat", "Memcpy", "Memset",
+                                   "fill")),
+)
+REG_FILES = {"rT1_template.nii.gz": SHAPE, "rT1d_template.nii.gz": SHAPE,
+             "transform.nii": (22, 26, 22, 1, 3),
+             "MNI_sub_probabilities.nii.gz": SHAPE + (15,),
+             "MNI_subcortical_mask.nii.gz": SHAPE}
 
 
 def check(cond: bool, what: str) -> None:
@@ -208,10 +258,13 @@ def time_ms(torch, fn, iters: int = 50, host: bool = False):
     return (device_ms, host_ms) if host else device_ms
 
 
-def profile_steps(torch, step, steps: int = PROFILE_STEPS) -> dict:
+def profile_steps(torch, step, steps: int = PROFILE_STEPS,
+                  parts=None) -> dict:
     """torch.profiler over ``steps`` calls of ``step``: device ms per step
-    by part of the step (KERNEL_PARTS), kernels per step, and the device's
-    busy share (device time over the window's wall time)."""
+    by part of the step (``parts``, by default KERNEL_PARTS), kernels per
+    step, and the device's busy share (device time over the window's wall
+    time)."""
+    parts = KERNEL_PARTS if parts is None else parts
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -240,7 +293,7 @@ def profile_steps(torch, step, steps: int = PROFILE_STEPS) -> dict:
     device_ms = sum(device_us(e) for e in events) / 1e3
     by_part = {}
     for e in events:
-        part = next((name for name, keys in KERNEL_PARTS
+        part = next((name for name, keys in parts
                      if any(k in e.key for k in keys)), "other elementwise")
         by_part[part] = by_part.get(part, 0.0) + device_us(e) / 1e3 / steps
     return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
@@ -556,6 +609,420 @@ def train_phase(torch, device, image, atlas, roi) -> dict:
     print(f"trained MNI weights, bfloat16 vs float32 labels (dense, "
           f"{len(cands)} candidates): {agreement}")
     out["trained_bf16_agreement"] = agreement
+    return out
+
+
+def make_phantom(atlas_dir, shape=(64, 72, 60), seed=0, amp=3.0):
+    """bench_reg.py::make_phantom on the port's make_synthetic_atlas: the
+    template, a subject = the template sampled through a known smooth warp
+    (~``amp``-voxel sinusoidal field), the subject with remapped
+    intensities, the atlas and the structure masks in subject space."""
+    from scipy import ndimage
+
+    from subcort_tpu_torch.registration import make_synthetic_atlas
+
+    template, atlas = make_synthetic_atlas(atlas_dir, shape=shape, seed=seed)
+    X, Y, Z = shape
+    gx, gy, gz = np.meshgrid(np.arange(X), np.arange(Y), np.arange(Z),
+                             indexing="ij")
+    dx = amp * np.sin(np.pi * gx / X) * np.cos(np.pi * gy / Y)
+    dy = amp * np.sin(np.pi * gy / Y) * np.cos(np.pi * gz / Z)
+    dz = 0.5 * amp * np.sin(np.pi * gz / Z)
+    coords = np.stack([gx + dx, gy + dy, gz + dz], 0)
+    subject = ndimage.map_coordinates(template, coords,
+                                      order=1).astype(np.float32)
+    gt_masks = np.stack(
+        [ndimage.map_coordinates(atlas[..., s], coords, order=1) > 0.5
+         for s in range(14)], -1)
+    fmax = subject.max()
+    subject_remap = ((fmax - subject) ** 2 / fmax).astype(np.float32)
+    return template, subject, subject_remap, atlas, gt_masks
+
+
+def make_affine_phantom(atlas_dir, shape=(64, 72, 60), seed=0):
+    """bench_reg.py::make_affine_phantom: the template, a subject = the
+    template under a known 12-dof misalignment (rotation + anisotropic
+    scale + translation), the atlas and the subject-space masks."""
+    from scipy import ndimage
+
+    from subcort_tpu_torch.registration import make_synthetic_atlas
+
+    template, atlas = make_synthetic_atlas(atlas_dir, shape=shape, seed=seed)
+    rz = np.deg2rad(7.0)
+    c, s = np.cos(rz), np.sin(rz)
+    M = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]]) @ np.diag(
+        [1.06, 0.94, 1.02])
+    center = np.asarray(shape) / 2.0
+    A = np.eye(4)
+    A[:3, :3] = M
+    A[:3, 3] = center - M @ center + np.array([2.5, -1.5, 1.0])
+    Ainv = np.linalg.inv(A)
+    subject = ndimage.affine_transform(template, Ainv[:3, :3],
+                                       offset=Ainv[:3, 3],
+                                       order=1).astype(np.float32)
+    gt_masks = np.stack(
+        [ndimage.affine_transform(atlas[..., s], Ainv[:3, :3],
+                                  offset=Ainv[:3, 3], order=1) > 0.5
+         for s in range(14)], -1)
+    return template, subject, atlas, gt_masks
+
+
+def masks_dice(warped, gt_masks) -> float:
+    """Mean Dice of the 14 warped structure channels (> 0.5) against the
+    subject-space masks (bench_reg.py::structure_dice)."""
+    dices = []
+    for s in range(14):
+        p, g = warped[..., s] > 0.5, gt_masks[..., s]
+        denom = int(p.sum()) + int(g.sum())
+        dices.append(2.0 * int((p & g).sum()) / denom if denom else 0.0)
+    return float(np.mean(dices))
+
+
+def dice(a, b) -> float:
+    return 2.0 * int((a & b).sum()) / max(int(a.sum()) + int(b.sum()), 1)
+
+
+def registration_phase(torch, device, image, atlas, roi, params, spec) -> dict:
+    """Phase 12: on-device registration (see the module docstring)."""
+    from scipy import ndimage
+
+    from subcort_tpu_torch import (NiftiImage, Options, SegmentationEngine,
+                                   build_training_index, load_nii, save_nii)
+    from subcort_tpu_torch.config import exact_float32
+    from subcort_tpu_torch.models import fcn
+    from subcort_tpu_torch.ops import gather_kernel
+    from subcort_tpu_torch.registration import (driver, load_cpp_grid,
+                                                make_synthetic_cohort,
+                                                register_masks,
+                                                resample_through_affine,
+                                                resample_through_cpp,
+                                                torch_backend)
+    from subcort_tpu_torch.registration.torch_affine import \
+        register_affine_torch
+    from subcort_tpu_torch.registration.torch_backend import (
+        CppGrid, _resample_affine, _resample_cpp)
+    from subcort_tpu_torch.registration.torch_ffd import (_grid_counts, _nmi,
+                                                          jacobian_stats,
+                                                          nmi_normalisation,
+                                                          register_ffd_torch)
+
+    out = {}
+    eye = np.eye(4)
+    rng = np.random.default_rng(12)
+
+    # the known misalignment of (a) and (c): a 12-dof affine about the
+    # volume's centre and a smooth warp of up to 3 voxels on a 10 mm grid
+    rz = np.deg2rad(5.0)
+    c, s = np.cos(rz), np.sin(rz)
+    M = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]]) @ np.diag(
+        [1.04, 0.97, 1.02])
+    center = (np.asarray(SHAPE) - 1) / 2.0
+    B = np.eye(4)
+    B[:3, :3] = M
+    B[:3, 3] = center - M @ center + np.array([3.0, -2.0, 1.5])
+    nc = _grid_counts(SHAPE, 10.0)
+    smooth = ndimage.gaussian_filter(rng.standard_normal(nc + (3,)),
+                                     (2, 2, 2, 0))
+    smooth = (smooth * 3.0 / np.abs(smooth).max()).astype(np.float32)
+    ii, jj, kk = np.meshgrid(*[np.arange(n) for n in nc], indexing="ij")
+    cp = np.stack([(ii - 1) * 10.0, (jj - 1) * 10.0, (kk - 1) * 10.0], -1)
+    baked = (cp @ B[:3, :3].T + B[:3, 3] - cp).astype(np.float32)
+    grid = CppGrid(baked + smooth, 10.0, eye)
+    check(jacobian_stats(grid, SHAPE, device)["min_jac"] > 0.5,
+          "the known misalignment is far from folding")
+
+    # (a) the resampler, card vs CPU, on the 427 MB prior volume
+    flo = torch.from_numpy(atlas).to(device)
+    n_bytes = 2 * atlas.nbytes
+    results = {}
+    for name, public, transform, program, args in (
+            ("resample_through_cpp", resample_through_cpp, grid,
+             _resample_cpp, (grid.disp, (10.0, 10.0, 10.0), eye, eye, SHAPE)),
+            ("resample_through_affine", resample_through_affine, B,
+             _resample_affine, (B, eye, eye, SHAPE))):
+        card = results[name] = public(atlas, eye, transform, SHAPE, eye,
+                                      device=device)
+        cpu = public(atlas, eye, transform, SHAPE, eye, device="cpu")
+        check(card.shape == atlas.shape and bool(np.isfinite(card).all()),
+              f"{name}: finite, the reference grid's shape")
+        err = float(np.abs(card - cpu).max())
+        span = float(atlas.max() - atlas.min())
+        with torch.no_grad(), exact_float32():
+            ms = time_ms(torch, lambda: program(flo, *args), iters=5)
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"{name}: {atlas.shape} float32 ({atlas.nbytes} bytes), card "
+              f"vs CPU max |difference| {err:.3e} of a value range of "
+              f"{span}; device program {ms:.3f} ms, "
+              f"{n_bytes / ms / 1e6:.1f} GB/s of {n_bytes} bytes read and "
+              f"written (bound {bound:.3f} ms)")
+        check(err <= REG_RESAMPLE_TOL * span,
+              f"{name} card vs CPU {err:.3e} <= {REG_RESAMPLE_TOL} of {span}")
+        out[f"reg_{name}_ms"] = ms
+        out[f"reg_{name}_card_vs_cpu"] = err
+    # the template's atlas: the phase-4 priors through the known transform
+    template_atlas = results["resample_through_cpp"]
+    del flo, card, cpu, results
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_reg_"))
+    env = os.environ.get("SUBCORT_ATLAS_DIR")
+    try:
+        # (b) quality on bench_reg.py's phantoms
+        template, subject, subject_remap, p_atlas, gt_masks = make_phantom(
+            str(root / "phantom_atlases"))
+        nc6 = _grid_counts(template.shape, 6.0)
+        identity = masks_dice(resample_through_cpp(
+            p_atlas, eye, CppGrid(np.zeros(nc6 + (3,), np.float32), 6.0, eye),
+            template.shape, eye, device=device), gt_masks)
+        phantoms = {}
+
+        def ffd(ref, cost, dev):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g, losses = register_ffd_torch(ref, template, spacing_mm=6.0,
+                                           iters=(60, 10), cost=cost,
+                                           device=dev)
+            seconds = time.perf_counter() - t0
+            stats = jacobian_stats(g, ref.shape, dev)
+            d = masks_dice(resample_through_cpp(
+                p_atlas, eye, g, ref.shape, eye, device=dev), gt_masks)
+            return g, losses, d, stats, seconds
+
+        for cost, ref in (("ssd", subject), ("nmi", subject_remap)):
+            ffd(ref, cost, device)  # first calls (cuBLAS, allocator)
+            g, losses, d, stats, seconds = ffd(ref, cost, device)
+            print(f"phantom FFD {cost}: structure Dice {d:.4f} (identity "
+                  f"{identity:.4f}), min det(J)/det(A) "
+                  f"{stats['min_jac']:.4f}, neg_fraction "
+                  f"{stats['neg_fraction']}, {seconds:.3f} s")
+            check(d >= REG_DICE_FLOOR,
+                  f"phantom FFD {cost}: Dice {d} >= {REG_DICE_FLOOR}")
+            check(stats["min_jac"] > REG_MIN_JAC_FLOOR,
+                  f"phantom FFD {cost}: min_jac {stats['min_jac']} > "
+                  f"{REG_MIN_JAC_FLOOR}")
+            phantoms[cost] = {"dice": d, "min_jac": stats["min_jac"],
+                              "seconds": seconds}
+            if cost == "ssd":
+                again = ffd(ref, cost, device)
+                rerun = float(np.abs(again[0].disp - g.disp).max())
+                cpu = ffd(ref, cost, "cpu")
+                loss_diff = float(abs(cpu[1][1][-1] - losses[1][-1])
+                                  / abs(cpu[1][1][-1]))
+                print(f"phantom FFD ssd: a second run on the card differs "
+                      f"by at most {rerun:.3e} mm in the control values "
+                      f"(bit-equal: {rerun == 0.0}); on the CPU: Dice "
+                      f"{cpu[2]:.4f}, final loss {cpu[1][1][-1]:.6f} vs "
+                      f"{losses[1][-1]:.6f} (relative {loss_diff:.3e}), "
+                      f"max |control difference| "
+                      f"{np.abs(cpu[0].disp - g.disp).max():.3e} mm, "
+                      f"{cpu[4]:.3f} s")
+                check(abs(cpu[2] - d) <= REG_CARD_VS_CPU_DICE,
+                      f"phantom FFD card vs CPU Dice {d} vs {cpu[2]}")
+                check(loss_diff <= REG_CARD_VS_CPU_LOSS,
+                      f"phantom FFD card vs CPU final loss {loss_diff:.3e}")
+                phantoms["ssd"].update(rerun_max_diff=rerun,
+                                       cpu_dice=cpu[2],
+                                       cpu_loss_rel_diff=loss_diff)
+
+        # the backward holds no scatter into the floating image
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            register_ffd_torch(subject_remap, template, spacing_mm=6.0,
+                               iters=(3, 2), cost="nmi", device=device)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        scatter = [n for n in names if "index_put" in n
+                   or "indexing_backward" in n or "index_add" in n]
+        check(not scatter, f"no scatter kernel in an FFD fit: {scatter}")
+        print(f"profile of a 5-iteration FFD fit: {len(names)} distinct ops "
+              "and kernels, none of them index_put / indexing_backward")
+
+        a_template, a_subject, a_atlas, a_masks = make_affine_phantom(
+            str(root / "phantom_atlases"))
+        register_affine_torch(a_subject, a_template, cost="ssd",
+                              device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A = register_affine_torch(a_subject, a_template, cost="ssd",
+                                  device=device)
+        seconds = time.perf_counter() - t0
+        d = masks_dice(resample_through_affine(
+            a_atlas, eye, A, a_subject.shape, eye, device=device), a_masks)
+        a_identity = masks_dice(a_atlas, a_masks)
+        print(f"phantom affine ssd: structure Dice {d:.4f} (identity "
+              f"{a_identity:.4f}), {seconds:.3f} s")
+        check(d >= REG_DICE_FLOOR,
+              f"phantom affine: Dice {d} >= {REG_DICE_FLOOR}")
+        phantoms["affine"] = {"dice": d, "seconds": seconds}
+        out["reg_phantoms"] = phantoms
+        out["reg_phantom_identity_dice"] = identity
+
+        # (c) full width, through the entry points
+        t0 = time.perf_counter()
+        t1f = image.astype(np.float32)
+        template = resample_through_cpp(t1f, eye, grid, SHAPE, eye,
+                                        device=device)
+        tmax = float(template.max())
+        template = (tmax * (template / tmax) ** 1.6).astype(np.float32)
+        atlas_dir = root / "atlases"
+        atlas_dir.mkdir()
+        save_nii(NiftiImage(template), str(atlas_dir / "T1_template.nii.gz"))
+        save_nii(NiftiImage(template_atlas),
+                 str(atlas_dir / "atlas_subcortical_MNI.nii.gz"))
+        sub = root / "scans" / "mni01"
+        sub.mkdir(parents=True)
+        scan = str(sub / "T1.nii.gz")
+        save_nii(NiftiImage(image), scan)
+        print(f"MNI-sized template, atlas and subject written in "
+              f"{time.perf_counter() - t0:.3f} s")
+        os.environ["SUBCORT_ATLAS_DIR"] = str(atlas_dir)
+        options = Options(test_folder=str(sub.parent), mode="cuda0",
+                          reg_backend="torch", reg_similarity="nmi",
+                          debug=False, net_verbose=0)
+        engine = SegmentationEngine(params, options, spec)
+        check(engine.register_fn is None, "no register_fn: the engine binds "
+              "register_masks itself")
+        torch_backend.LEVEL_LOG, driver.REPORT = [], {}
+        gather_kernel.LAUNCHES = 0
+        fcn.SLABS = 0
+        t0 = time.perf_counter()
+        engine.segment_folder()
+        seconds = time.perf_counter() - t0
+        levels, torch_backend.LEVEL_LOG = torch_backend.LEVEL_LOG, None
+        report, driver.REPORT = driver.REPORT, None
+        check(fcn.SLABS >= 1, "the registered scan went through the dense "
+              "evaluator")
+        tmp = sub / "tmp"
+        check(np.loadtxt(str(tmp / "transf.txt")).shape == (4, 4),
+              "transf.txt holds a 4x4 affine")
+        loaded = {}
+        for name, shape in REG_FILES.items():
+            check((tmp / name).exists(), f"{name} exists")
+            loaded[name] = np.asarray(load_nii(str(tmp / name)).data)
+            check(loaded[name].shape == shape,
+                  f"{name}: shape {loaded[name].shape} == {shape}")
+        fitted = load_cpp_grid(str(tmp / "transform.nii"), eye)
+        stats = jacobian_stats(fitted, SHAPE, device)
+        check(stats["min_jac"] > 0.0,
+              f"the fitted transform does not fold: {stats}")
+
+        def nmi_with_subject(moving):
+            with torch.no_grad(), exact_float32():
+                ref = torch.from_numpy(t1f).to(device)
+                mov = torch.from_numpy(moving).to(device)
+                ref01, lo, scale = nmi_normalisation(ref, mov)
+                return float(_nmi(ref01, torch.clamp((mov - lo) * scale,
+                                                     0.0, 1.0), 32))
+
+        nmi_before = nmi_with_subject(template)
+        nmi_affine = nmi_with_subject(loaded["rT1_template.nii.gz"])
+        nmi_after = nmi_with_subject(loaded["rT1d_template.nii.gz"])
+        check(nmi_after > nmi_before,
+              f"NMI with the subject rose: {nmi_before} -> {nmi_after}")
+
+        def roi_of(priors):
+            return priors[..., :14].sum(-1) > 0.5
+
+        d = dice(roi_of(loaded["MNI_sub_probabilities.nii.gz"]), roi)
+        d_identity = dice(roi_of(template_atlas), roi)
+        check(d >= REG_MNI_DICE, f"warped priors' ROI Dice {d} >= "
+              f"{REG_MNI_DICE} (identity {d_identity})")
+        seg = load_nii(str(sub / "out_subcortical_seg_prec.nii.gz"))
+        labelled = int((seg.data != 0).sum())
+        check(seg.data.shape == SHAPE and labelled > 0,
+              "a segmentation with non-zero labels")
+        again = register_masks(scan, backend="torch", similarity="nmi",
+                               device=device)
+        check(again < 1.0, f"the stage cache: a second register_masks call "
+              f"took {again:.3f} s < 1 s")
+        reg_s = sum(v for k, v in report.items() if k.endswith("_s"))
+        print(f"MNI-sized scan without tmp/: segment_folder {seconds:.3f} s; "
+              f"register_masks {reg_s:.3f} s, by stage (io_s: NIfTI reads "
+              f"and writes only) {json.dumps(report)}; second call "
+              f"{again:.4f} s")
+        for lv in levels:
+            print(f"  level {lv['stage']} {lv.get('dof', '')} {lv['shape']}: "
+                  f"{lv['iters']} iterations, "
+                  f"{lv['device_ms_per_iter']} ms per iteration by CUDA "
+                  f"events, host enqueue {lv['host_enqueue_ms_per_iter']} ms")
+        print(f"MNI-sized registration: NMI with the subject "
+              f"{nmi_before:.6f} unregistered, {nmi_affine:.6f} affine, "
+              f"{nmi_after:.6f} deformable; ROI Dice {d:.6f} (identity "
+              f"{d_identity:.6f}); min det(J)/det(A) {stats['min_jac']:.4f}, "
+              f"neg_fraction {stats['neg_fraction']}; {labelled} labelled "
+              "voxels")
+        # the device's own work in one FFD iteration at both levels: Adam
+        # steps from the fitted state under torch.profiler
+        from subcort_tpu_torch.registration import torch_ffd
+        from subcort_tpu_torch.registration.torch_backend import downsample2
+
+        profiles = {}
+        ref_full = torch.from_numpy(t1f).to(device)
+        flo_full = torch.from_numpy(template).to(device)
+        ref_half, half_affine = downsample2(ref_full, eye)
+        flo_half, _ = downsample2(flo_full, eye)
+        d0 = torch.from_numpy(fitted.disp).to(device)
+        for name, ref, flo, aff, spacing, offset in (
+                ("ffd half level", ref_half, flo_half, half_affine, 5.0, 0.25),
+                ("ffd full level", ref_full, flo_full, eye, 10.0, 0.0)):
+            aff_t = torch.from_numpy(aff.astype(np.float32)).to(device)
+            inv_t = torch.from_numpy(
+                np.linalg.inv(aff).astype(np.float32)).to(device)
+            with exact_float32():
+                loss_fn = torch_ffd._level_loss(
+                    d0, ref, flo, aff_t, inv_t, (spacing,) * 3, 5e-4,
+                    cost="nmi", jw=1.0, vox_offset=offset)
+                ctrl = d0.clone().requires_grad_(True)
+                opt = torch.optim.Adam([ctrl], lr=0.01)
+
+                def step():
+                    opt.zero_grad(set_to_none=True)
+                    loss_fn(ctrl).backward()
+                    opt.step()
+
+                profiles[name] = profile_steps(torch, step, steps=3,
+                                               parts=REG_KERNEL_PARTS)
+            print(f"  {name} {list(ref.shape)}, one iteration under the "
+                  f"profiler: {json.dumps(profiles[name])}")
+            del loss_fn, ctrl, opt
+        del ref_full, flo_full, ref_half, flo_half
+        out.update(reg_segment_folder_s=seconds, reg_stages=report,
+                   reg_level_profiles=profiles,
+                   reg_levels=levels, reg_mni_dice=d,
+                   reg_mni_identity_dice=d_identity,
+                   reg_mni_min_jac=stats["min_jac"],
+                   reg_mni_nmi=[nmi_before, nmi_affine, nmi_after],
+                   reg_cached_call_s=again)
+
+        # (d) the priors-miss path of training
+        cohort = str(root / "cohort")
+        make_synthetic_cohort(cohort, n_subjects=1, shape=(48, 54, 44),
+                              seed=1, write_priors=False)
+        os.environ["SUBCORT_ATLAS_DIR"] = cohort + "_atlases"
+        t0 = time.perf_counter()
+        index = build_training_index(Options(
+            train_folder=cohort, mode="cuda0", reg_backend="torch",
+            debug=False, seed=1))
+        seconds = time.perf_counter() - t0
+        prior = Path(cohort) / "s00" / "tmp" / "MNI_sub_probabilities.nii.gz"
+        check(prior.exists() and len(index) > 0,
+              "build_training_index registered the subject and built an "
+              "index")
+        informed = float((index.atlas[:, :14].sum(1) > 0).mean())
+        check(informed > 0.5, f"the registered priors reach the sampled "
+              f"centres ({informed:.3f} of them)")
+        print(f"training priors-miss path: {len(index)} samples from one "
+              f"subject registered on the card, {seconds:.3f} s; structure "
+              f"prior mass at {informed:.3f} of the centres")
+        out["reg_training_index_s"] = seconds
+    finally:
+        torch_backend.LEVEL_LOG = driver.REPORT = None
+        if env is None:
+            os.environ.pop("SUBCORT_ATLAS_DIR", None)
+        else:
+            os.environ["SUBCORT_ATLAS_DIR"] = env
+        shutil.rmtree(root)
     return out
 
 
@@ -884,7 +1351,10 @@ def main() -> None:
     # 11. training
     train = train_phase(torch, device, image, atlas, roi)
 
-    # 12. results
+    # 12. registration
+    reg = registration_phase(torch, device, image, atlas, roi, params, spec)
+
+    # 13. results
     print(json.dumps({"kernels": [{
         "name": "gather_triplanar",
         "route": "cuda",
@@ -902,6 +1372,7 @@ def main() -> None:
         "prepare_ms": prepare_ms,
         "uses": uses,
         **train,
+        **reg,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

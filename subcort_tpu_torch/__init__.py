@@ -6,7 +6,7 @@ package: where it needs a jax-free module of that package (``config``'s
 ``Options`` contract, ``io``'s NIfTI), it keeps its own copy, which the
 tests hold to the original.
 
-Ported so far: the inference path and training. Inference:
+Ported so far: the inference path, training and registration. Inference:
 ``SegmentationEngine`` / ``test_scan`` -> ``segment_volume`` -> the dense
 à-trous evaluator (``engine="fcn"``, what ``"auto"`` picks for a dense
 candidate set) or the patch engine (chunked tri-planar gather -> CNN ->
@@ -16,6 +16,11 @@ argmax, the gather a hand-written CUDA kernel for Hopper,
 Lasagne's EMA, dropout, best-only Theano-format checkpoints through
 ``save_theano_checkpoint``), every step gathering its patches with the same
 kernel in subject-stack mode, in float32 or ``train_dtype = bfloat16``.
+Registration: a scan without its ``tmp/`` priors goes through
+``registration.register_masks`` first: on the card by default
+(``reg_backend = torch``: 12-dof affine, B-spline FFD, one-pass prior warp),
+or by the C++ tools on the CPU where the caller asks for them
+(``reg_backend = native``).
 Entry points run on the card unless ``Options.mode`` asks for the CPU.
 Options outside the ported slices raise ``NotImplementedError`` naming
 their ROADMAP.md item.

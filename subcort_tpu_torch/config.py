@@ -5,7 +5,10 @@ subcort_tpu/config.py (its ``Options``, ``load_options`` and
 ``print_options``): the reference's ``configuration.cfg`` contract with the
 same sections, key names and defaults (cnn_cort/load_options.py:11-59,
 configuration.cfg:1-23). tests/test_torch_config.py holds the two to the
-same options. Booleans arrive as the strings ``'True'``/``'False'`` and are
+same options, apart from one default: ``reg_backend`` is ``"torch"`` here
+(registration on the device ``mode`` names) where the JAX package's is
+``"native"`` (the C++ tools on the CPU), because the port's entry points run
+on the card unless the caller asks for the CPU. Booleans arrive as the strings ``'True'``/``'False'`` and are
 read with the same tolerance; a dict-style ``options['patch_size']`` view
 sits beside the typed fields.
 
@@ -88,7 +91,7 @@ class Options(Mapping[str, Any]):
     fcn_max_bbox_voxels: int = 6_000_000  # dense-evaluator sub-slab budget
     fcn_spmd: bool = True           # multi-device FCN: one sharded SPMD program over the ('data',) mesh (False: host sub-bbox fan-out — pipelines uploads on a slow host link)
     debug_nans: bool = False        # jax_debug_nans: raise on first NaN (debug only)
-    reg_backend: str = "native"     # deformable registration: native (C++) | jax (on-device)
+    reg_backend: str = "torch"      # registration: torch (on the device ``mode`` names; the default, and the one default that differs from the JAX package's "native") | native (the C++ tools on the CPU, opt-in); the JAX package's "jax" raises here
     reg_similarity: str = "nmi"     # deformable-stage cost: nmi (default — the reference's reg_f3d is NiftyReg's NMI-driven FFD, base.py:516-521) | ssd (opt-in; wins on same-protocol pairs)
     train_dtype: str = "float32"    # training forward/backward: float32 | bfloat16 (f32 master)
     intensity_augment: float = 0.0  # train-time intensity-robustness augmentation strength S (0 = off = reference-exact; 2.0 = validated sweet spot, see ROBUSTQUAL_AUG_r05.json); per-sample gain/shift shared across views + per-voxel noise — hardens the CNN against bias-field/remap/Rician covariate shift (see engine/train.py::_augment_intensity)
@@ -188,7 +191,7 @@ def load_options(user_config: configparser.RawConfigParser | str | os.PathLike) 
                                     6_000_000, int)),
         fcn_spmd=_as_bool(opt("tpu", "fcn_spmd", True)),
         debug_nans=_as_bool(opt("tpu", "debug_nans", False)),
-        reg_backend=opt("tpu", "reg_backend", "native").strip(),
+        reg_backend=opt("tpu", "reg_backend", "torch").strip(),
         reg_similarity=opt("tpu", "reg_similarity", "nmi").strip(),
         train_dtype=opt("tpu", "train_dtype", "float32").strip(),
         intensity_augment=float(opt("tpu", "intensity_augment", 0.0, float)),
@@ -237,6 +240,15 @@ def select_device(options: Options) -> torch.device:
             f"mode={options.mode!r} asks for cuda:{index}, but only "
             f"{torch.cuda.device_count()} CUDA device(s) are present")
     return torch.device("cuda", index)
+
+
+def resolve_device(device) -> torch.device:
+    """The ``device`` argument of the port's functions: ``None`` is the
+    default card, ``select_device(Options())``, which raises without one;
+    anything else is the device the caller named."""
+    if device is None:
+        return select_device(Options())
+    return torch.device(device)
 
 
 @contextlib.contextmanager

@@ -17,9 +17,9 @@ class at its center. Every draw comes from one ``numpy.random.Generator``
 in the JAX package's order, so one seed gives both packages the same index
 (tests/test_torch_data.py).
 
-A missing prior without a ``register_fn`` raises: registration is not
-ported yet (ROADMAP.md queue A item 7), where the JAX package would call
-its ``register_masks``.
+A subject without its ``tmp/`` prior is registered on the spot: by the
+caller's ``register_fn``, else by ``register_masks`` with the configured
+backend and cost (:func:`_configured_register`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,13 +30,14 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from subcort_tpu_torch.config import Options, not_ported
+from subcort_tpu_torch.config import Options, select_device
 from subcort_tpu_torch.io import load_nii
 from subcort_tpu_torch.ops.normalize import normalize_nonzero
 from subcort_tpu_torch.ops.patches import HALF, gather_triplanar_np
 from subcort_tpu_torch.ops.sampling import (balanced_negative_sample,
                                             get_mask_voxels,
                                             shuffle_consistent)
+from subcort_tpu_torch.registration.driver import check_registration
 
 BG_BOUNDARY_CLASS = 15  # GT convention: boundary-background voxels
 
@@ -47,6 +48,23 @@ class Subject:
     t1_path: str
     roi_path: str
     prior_path: str  # tmp/MNI_sub_probabilities.nii.gz
+
+
+def _configured_register(register_masks, options: Options, device=None):
+    """Bind the cfg-selected registration backend/cost ([tpu] reg_backend /
+    reg_similarity) onto ``register_masks`` (reference: base.py:483-551 has
+    no knobs; NiftyReg NMI is hardwired there). The on-device backend runs
+    on ``device``, else on the one ``options.mode`` names, which raises
+    without a card."""
+    def run(path: str) -> float:
+        backend = options["reg_backend"]
+        dev = device
+        if dev is None and backend == "torch":
+            dev = select_device(options)
+        return register_masks(path, backend=backend,
+                              similarity=options["reg_similarity"],
+                              device=dev)
+    return run
 
 
 def list_training_subjects(options: Options) -> List[Subject]:
@@ -112,9 +130,10 @@ def build_training_index(options: Options,
     the train step's gather needs no per-batch padding; subjects of other
     shapes are zero-padded up to the largest extent. A subject without its
     ``tmp/`` prior calls ``register_fn(t1_path)``, which must write it; with
-    no ``register_fn`` that raises ``NotImplementedError`` (registration is
-    ROADMAP.md queue A item 7).
+    no ``register_fn`` that is ``register_masks`` under ``reg_backend`` and
+    ``reg_similarity``, on the device ``options.mode`` names.
     """
+    check_registration(options["reg_backend"], options["reg_similarity"])
     if rng is None:
         rng = np.random.default_rng(options["seed"])
     if subjects is None:
@@ -135,9 +154,8 @@ def build_training_index(options: Options,
 
         if not os.path.exists(sub.prior_path):
             if register_fn is None:
-                raise not_ported(
-                    f"{sub.prior_path} is missing and no register_fn was "
-                    "given; registration", "item 7, on-device registration")
+                from subcort_tpu_torch.registration import register_masks
+                register_fn = _configured_register(register_masks, options)
             register_fn(sub.t1_path)
         prior = np.asarray(load_nii(sub.prior_path).data, dtype=np.float32)
         vec = prior[centers[:, 0], centers[:, 1], centers[:, 2]].copy()

@@ -18,9 +18,13 @@ host and results scattered on the host:
 unless the candidate bbox holds more than 30 voxels per candidate, as the
 JAX package does. The two engines agree on labels
 (tests/test_torch_fcn.py). ``compute_dtype = bfloat16`` runs either engine
-on a bfloat16 copy of the net. ``data_parallel>1``, ``folder_pipeline=True``
-and ``cc_backend=device`` raise :class:`NotImplementedError` naming the
-ROADMAP.md item; nothing is rerouted silently.
+on a bfloat16 copy of the net. A scan without its ``tmp/`` priors is
+registered first (``register_masks`` under ``reg_backend`` and
+``reg_similarity``; ``reg_backend = torch`` runs it on the engine's device).
+``data_parallel>1``, ``folder_pipeline=True`` and ``cc_backend=device``
+raise :class:`NotImplementedError` naming the ROADMAP.md item, and an
+unknown ``reg_backend`` or ``reg_similarity`` a :class:`ValueError`; nothing
+is rerouted silently.
 
 Left out of the JAX dense host path, which shaped it for a TPU behind a
 slow link: the packed-bitmask candidate wire, compacted prior rows, the
@@ -48,6 +52,7 @@ from scipy import ndimage
 
 from subcort_tpu_torch.config import (Options, exact_float32, not_ported,
                                       select_device)
+from subcort_tpu_torch.engine.data import _configured_register
 from subcort_tpu_torch.engine.forward import forward_centers
 from subcort_tpu_torch.engine.metrics import ScanStats
 from subcort_tpu_torch.engine.postprocess import post_process_segmentation
@@ -59,6 +64,7 @@ from subcort_tpu_torch.ops.gather_kernel import prepare_gather_volume
 from subcort_tpu_torch.ops.normalize import normalize_stats
 from subcort_tpu_torch.ops.patches import pad_volume
 from subcort_tpu_torch.ops.sampling import get_mask_voxels
+from subcort_tpu_torch.registration.driver import check_registration
 
 DEFAULT_CHUNK = 8192
 
@@ -73,6 +79,7 @@ def check_slice_options(options: Options) -> None:
     if options["cc_backend"] == "device":
         raise not_ported("cc_backend='device' (on-device connected "
                          "components)", "item 8, device CC")
+    check_registration(options["reg_backend"], options["reg_similarity"])
 
 
 def net_in_dtype(net: TriPlanarNet, compute_dtype: str) -> TriPlanarNet:
@@ -373,10 +380,13 @@ def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
     return label_vol, prob_vol
 
 
-def _load_scan_inputs(scan_path: str, options: Options, register_fn=None):
-    """Host-side per-scan prep: priors from the per-subject ``tmp/`` cache
-    (or ``register_fn(scan_path)`` on a miss), the T1 + prior volumes, and
-    the candidate voxels."""
+def _load_scan_inputs(scan_path: str, options: Options, register_fn=None,
+                      device: Optional[torch.device] = None):
+    """Host-side per-scan prep: priors from the per-subject ``tmp/`` cache,
+    the T1 + prior volumes, and the candidate voxels. On a cache miss the
+    scan is registered first: by ``register_fn(scan_path)``, else by
+    ``register_masks`` with the configured backend and cost, the on-device
+    backend on ``device`` (``None``: the one ``options.mode`` names)."""
     image_dir, _ = os.path.split(scan_path)
     tmp = os.path.join(image_dir, "tmp")
     prior_path = os.path.join(tmp, "MNI_sub_probabilities.nii.gz")
@@ -384,10 +394,9 @@ def _load_scan_inputs(scan_path: str, options: Options, register_fn=None):
 
     if not os.path.exists(prior_path):
         if register_fn is None:
-            raise FileNotFoundError(
-                f"{prior_path} is missing and no register_fn was given; "
-                "registration is not ported to subcort_tpu_torch yet "
-                "(ROADMAP.md, queue A: item 7, on-device registration)")
+            from subcort_tpu_torch.registration import register_masks
+            register_fn = _configured_register(register_masks, options,
+                                               device)
         register_fn(scan_path)
 
     t1 = load_nii(scan_path)
@@ -406,7 +415,7 @@ def test_scan(net: TriPlanarNet, scan_path: str, options: Options,
     s_time = time.time()
     image_dir, _ = os.path.split(scan_path)
     t1, image, atlas, centers = _load_scan_inputs(scan_path, options,
-                                                  register_fn)
+                                                  register_fn, device)
     if options.bool("debug"):
         print("    -->  num of samples to test:", len(centers))
     stats = ScanStats(scan_path).set(candidate_voxels=int(len(centers)),

@@ -3,7 +3,10 @@ package's, and the port's import isolation from the JAX package.
 
 ``subcort_tpu_torch.config`` keeps a copy of the reference's
 ``configuration.cfg`` contract so that the port imports nothing of the JAX
-package; the two must read every file to the same options.
+package; the two must read every file to the same options, apart from the
+one default the port changes on purpose: ``reg_backend`` is ``"torch"``
+(registration on the card) where the JAX package's is ``"native"`` (the C++
+tools on the CPU).
 """
 
 import ast
@@ -43,6 +46,14 @@ dilate_crop_iters = 3
 """
 
 
+def _as_port(jax_options) -> dict:
+    """The JAX package's options as the port must read them: equal, apart
+    from the ``reg_backend`` default."""
+    want = dataclasses.asdict(jax_options)
+    assert want["reg_backend"] == "native"
+    return dict(want, reg_backend="torch")
+
+
 @pytest.mark.parametrize("source", ["example", "custom", "empty"])
 def test_load_options_matches_jax_package(tmp_path, source):
     if source == "example":
@@ -52,7 +63,10 @@ def test_load_options_matches_jax_package(tmp_path, source):
         path.write_text(CUSTOM if source == "custom" else "[model]\n")
     got, want = load_options(path), jax_load_options(path)
     assert isinstance(got, Options)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    if source == "example":  # names reg_backend itself: read alike
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    else:
+        assert dataclasses.asdict(got) == _as_port(want)
     if source == "custom":
         assert (got.mode, got.use_fcn, got.compute_dtype,
                 got.test_batch_size) == ("cuda1", False, "bfloat16", 4096)
@@ -60,7 +74,7 @@ def test_load_options_matches_jax_package(tmp_path, source):
 
 def test_options_defaults_keys_and_dump_match_jax_package(capsys):
     got, want = Options(), JaxOptions()
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(got) == _as_port(want)
     assert list(got) == list(want) and got.mode == "tpu"
     got["debug"] = "False"
     assert got.bool("debug") is False and got["debug"] == "False"
@@ -68,7 +82,7 @@ def test_options_defaults_keys_and_dump_match_jax_package(capsys):
         got["no_such_key"]
     print_options(Options(mode="cpu"))
     mine = capsys.readouterr().out
-    jax_print_options(JaxOptions(mode="cpu"))
+    jax_print_options(JaxOptions(mode="cpu", reg_backend="torch"))
     assert mine == capsys.readouterr().out
 
 

@@ -1,5 +1,6 @@
-"""Card-only tests of the port: its CUDA gather kernel, the engines and the
-train step on the card against the CPU; each skips without a CUDA device.
+"""Card-only tests of the port: its CUDA gather kernel, the engines, the
+train step and the on-device registration on the card against the CPU; each
+skips without a CUDA device.
 
 This file imports no jax and uses no conftest fixture, so it runs on a
 machine that has torch and no jax:
@@ -346,3 +347,147 @@ def test_train_step_ignores_global_tf32(cuda_device):
         cudnn.allow_tf32, matmul.allow_tf32 = saved
     assert torch.equal(losses[True], losses[False])
 
+
+
+# ------------------------------------------------------------- registration
+def _reg_pair(shape=(36, 40, 34)):
+    """A smooth structured pair: blobs, and the same under a 1.5-voxel
+    sinusoidal warp along x."""
+    from scipy import ndimage
+
+    rng = np.random.default_rng(7)
+    base = ndimage.gaussian_filter(rng.random(shape) * 100, 2).astype(np.float32)
+    base[:4] = 0
+    base[-4:] = 0
+    coords = np.stack(np.meshgrid(*[np.arange(s) for s in shape],
+                                  indexing="ij"), 0).astype(np.float64)
+    coords[0] += 1.5 * np.sin(np.linspace(0, np.pi, shape[0]))[:, None, None]
+    flo = ndimage.map_coordinates(base, coords, order=1).astype(np.float32)
+    return base, flo
+
+
+@pytest.mark.cuda
+def test_resamplers_card_match_cpu(cuda_device):
+    """Both resamplers on a 15-channel volume, card vs CPU: 1e-5 of the
+    value range, whatever the global TF32 flags say."""
+    from subcort_tpu_torch.registration import (resample_through_affine,
+                                                resample_through_cpp)
+    from subcort_tpu_torch.registration.torch_backend import CppGrid
+    from subcort_tpu_torch.registration.torch_ffd import _grid_counts
+
+    rng = np.random.default_rng(3)
+    flo = rng.random((30, 34, 28, 15)).astype(np.float32)
+    flo_affine = np.diag([1.0, 1.0, 1.2, 1.0])
+    ref_shape, ref_affine = (28, 30, 20), np.diag([1.0, 1.0, 1.5, 1.0])
+    A = np.eye(4)
+    A[:3, :3] += rng.standard_normal((3, 3)) * 0.04
+    A[:3, 3] = [1.5, -1.0, 0.5]
+    spacing = (5.0, 5.0, 10.0 / 3.0)
+    disp = (rng.standard_normal(_grid_counts(ref_shape, spacing) + (3,))
+            * 2.0).astype(np.float32)
+    grid = CppGrid(disp, spacing, ref_affine)
+    flags = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for fn, how in ((resample_through_affine, A),
+                        (resample_through_cpp, grid)):
+            card = fn(flo, flo_affine, how, ref_shape, ref_affine,
+                      device=cuda_device)
+            cpu = fn(flo, flo_affine, how, ref_shape, ref_affine,
+                     device="cpu")
+            assert float(np.abs(cpu).max()) > 0.1
+            np.testing.assert_allclose(card, cpu, atol=1e-5)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cost,be", [("ssd", 0.05), ("nmi", 5e-4)])
+def test_ffd_level_loss_and_gradient_card_match_cpu(cuda_device, cost, be):
+    """One FFD level's loss (rtol 1e-5) and gradient (rtol 1e-3, atol
+    scaled by the largest |gradient|) on the card against the CPU, the
+    hinge on."""
+    from subcort_tpu_torch.config import exact_float32
+    from subcort_tpu_torch.registration import torch_ffd
+    from subcort_tpu_torch.registration.torch_backend import downsample2
+
+    ref, flo = _reg_pair()
+    ref_c, ra = downsample2(ref, np.eye(4))
+    flo_c, fa = downsample2(flo, np.eye(4))
+    nc = torch_ffd._grid_counts(ref.shape, 6.0)
+    disp = (np.random.default_rng(3).standard_normal(nc + (3,)) * 3.0
+            ).astype(np.float32)
+    got = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        arrays = [np.zeros_like(disp), ref_c, flo_c, ra, np.linalg.inv(fa)]
+        tensors = [torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+                   for a in arrays]
+        with exact_float32():
+            loss_fn = torch_ffd._level_loss(*tensors, (3.0, 3.0, 3.0), be,
+                                            cost=cost, jw=1.0,
+                                            vox_offset=0.25)
+            d = torch.from_numpy(disp).to(dev).requires_grad_(True)
+            loss = loss_fn(d)
+            loss.backward()
+        got[dev.type] = (loss.item(), d.grad.cpu().numpy())
+    np.testing.assert_allclose(got["cuda"][0], got["cpu"][0], rtol=1e-5)
+    scale = float(np.abs(got["cpu"][1]).max())
+    np.testing.assert_allclose(got["cuda"][1], got["cpu"][1], rtol=1e-3,
+                               atol=1e-3 * scale)
+
+
+@pytest.mark.cuda
+def test_register_masks_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """register_masks with its default backend on a small phantom on the
+    card: the file set, majority prior overlap, and, while ``driver.REPORT``
+    is a dict, a report of every stage that sums to the call, with peak
+    device memory; with the hook off the device's peak statistics are left
+    alone."""
+    import shutil
+
+    from scipy import ndimage
+
+    from subcort_tpu_torch.io import NiftiImage, load_nii, save_nii
+    from subcort_tpu_torch.registration import (driver, make_synthetic_atlas,
+                                                register_masks)
+
+    atlas_dir = str(tmp_path / "atlases")
+    template, atlas = make_synthetic_atlas(atlas_dir, shape=(36, 40, 34))
+    shift = (1.5, -1.0, 0.5)
+    subject = ndimage.shift(template, shift, order=1).astype(np.float32)
+    (tmp_path / "subj").mkdir()
+    scan = str(tmp_path / "subj" / "T1.nii.gz")
+    save_nii(NiftiImage(subject), scan)
+    monkeypatch.setattr(driver, "REPORT", {})
+    seconds = register_masks(scan, atlas_dir=atlas_dir, device=cuda_device,
+                             tools_dir=str(tmp_path / "no_tools_here"))
+    report = driver.REPORT
+    monkeypatch.setattr(driver, "REPORT", None)
+    tmp = tmp_path / "subj" / "tmp"
+    for f in ("transf.txt", "transform.nii", "rT1_template.nii.gz",
+              "rT1d_template.nii.gz", "MNI_sub_probabilities.nii.gz",
+              "MNI_subcortical_mask.nii.gz"):
+        assert (tmp / f).exists(), f
+    probs = load_nii(str(tmp / "MNI_sub_probabilities.nii.gz")).data
+    want = np.stack([ndimage.shift(atlas[..., c], shift, order=1)
+                     for c in range(14)], -1)
+    inter = ((probs[..., :14] > 0.2) & (want > 0.2)).sum()
+    union = ((probs[..., :14] > 0.2) | (want > 0.2)).sum()
+    assert inter / max(union, 1) > 0.5
+    for stage in ("affine", "ffd", "prior_warp"):
+        assert report[stage + "_s"] > 0
+        assert report[stage + "_peak_bytes"] > 0
+    assert report["io_s"] > 0 and report["mask_s"] > 0
+    spans = sum(v for k, v in report.items() if k.endswith("_s"))
+    assert 0.95 * seconds <= spans <= seconds
+    assert register_masks(scan, atlas_dir=atlas_dir, backend="torch",
+                          device=cuda_device) < 1.0
+    # hook off: nothing recorded, the process's peak statistics untouched
+    shutil.rmtree(tmp)
+    big = torch.empty(1 << 28, dtype=torch.uint8, device=cuda_device)
+    peak = torch.cuda.max_memory_allocated(cuda_device)
+    del big
+    register_masks(scan, atlas_dir=atlas_dir, device=cuda_device)
+    assert driver.REPORT is None
+    assert torch.cuda.max_memory_allocated(cuda_device) >= peak

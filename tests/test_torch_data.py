@@ -154,9 +154,45 @@ def test_synthetic_cohort_matches_jax(tmp_path):
 
 
 def test_missing_prior_without_register_fn_raises_not_ported(tmp_path):
+    """Without a ``register_fn`` a missing prior goes to ``register_masks``
+    under the configured backend. The JAX package's ``jax`` backend is not
+    the port's: it raises naming ``torch``, before any subject is read; and
+    ``torch`` without a card raises from ``select_device``."""
     opts, _ = _make_dataset(tmp_path, prior=False)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    opts["reg_backend"] = "jax"
+    with pytest.raises(ValueError, match="'torch'"):
         data.build_training_index(opts)
+    opts["reg_backend"] = "native"
+    opts["reg_similarity"] = "ncc"
+    with pytest.raises(ValueError, match="reg_similarity"):
+        data.build_training_index(opts)
+    if not torch.cuda.is_available():
+        opts["reg_backend"], opts["reg_similarity"] = "torch", "nmi"
+        with pytest.raises(RuntimeError, match="CUDA"):
+            data.build_training_index(opts)
+
+
+def test_missing_prior_without_register_fn_registers(tmp_path, monkeypatch):
+    """With no ``register_fn``, ``build_training_index`` binds
+    ``register_masks`` to the configured backend, cost and device, as the
+    JAX package does (data.py:147-150)."""
+    import subcort_tpu_torch.registration as registration
+
+    opts, _ = _make_dataset(tmp_path, prior=False)
+    opts["mode"], opts["reg_backend"] = "cpu", "torch"
+    calls = []
+
+    def register(t1_path, **kw):
+        calls.append(kw)
+        prior = np.full(SHAPE + (15,), 1.0 / 15, np.float32)
+        save_nii(NiftiImage(prior), t1_path.replace(
+            "T1.nii.gz", "tmp/MNI_sub_probabilities.nii.gz"))
+
+    monkeypatch.setattr(registration, "register_masks", register)
+    index = data.build_training_index(opts)
+    assert calls == [dict(backend="torch", similarity="nmi",
+                          device=torch.device("cpu"))] * 2
+    np.testing.assert_allclose(index.atlas, 1.0 / 15)
 
 
 def test_missing_prior_calls_register_fn(tmp_path):

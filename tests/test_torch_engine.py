@@ -30,6 +30,7 @@ from subcort_tpu_torch.config import Options
 from subcort_tpu_torch.engine import (SegmentationEngine,
                                       post_process_segmentation,
                                       segment_volume)
+from subcort_tpu_torch.engine import test_scan as port_test_scan
 from subcort_tpu_torch.models import TriPlanarNet, params_from_jax
 from subcort_tpu_torch.ops import gather_kernel
 
@@ -166,25 +167,72 @@ def test_segment_folder_serial_sweep(params, phantom, tmp_path):
     assert not (tmp_path / "s1" / "out_subcortical_prob.nii.gz").exists()
 
 
-def test_priors_come_from_cache_or_register_fn(params, phantom, tmp_path):
-    """A missing ``tmp/`` prior with no ``register_fn`` raises; a given
-    ``register_fn`` is called to fill the cache."""
-    image, atlas, mask = phantom
-    scan = tmp_path / "s1" / "T1.nii.gz"
-    scan.parent.mkdir()
-    save_nii(NiftiImage(image), str(scan))
-    opts = _options(post_process=False, out_probabilities=False, mode="cpu")
-    with pytest.raises(FileNotFoundError, match="ROADMAP"):
-        SegmentationEngine(params, opts).segment_scan(str(scan))
+def test_priors_come_from_cache_or_register_fn(params, phantom, tmp_path,
+                                               monkeypatch):
+    """A missing ``tmp/`` prior with no ``register_fn`` is registered by
+    ``register_masks`` under the configured backend, cost and device, as in
+    the JAX package (infer.py:710-715); a given ``register_fn`` is called
+    instead."""
+    import subcort_tpu_torch.registration as registration
 
-    def register(path):
+    image, atlas, mask = phantom
+    opts = _options(post_process=False, out_probabilities=False, mode="cpu",
+                    reg_backend="torch", reg_similarity="ssd")
+    calls = []
+
+    def register(path, **kw):
+        calls.append((path, kw))
         tmp = Path(path).parent / "tmp"
         tmp.mkdir()
         save_nii(NiftiImage(atlas), str(tmp / "MNI_sub_probabilities.nii.gz"))
         save_nii(NiftiImage(mask), str(tmp / "MNI_subcortical_mask.nii.gz"))
 
-    SegmentationEngine(params, opts, register_fn=register).segment_scan(str(scan))
-    assert (scan.parent / "out_subcortical_rawseg.nii.gz").exists()
+    monkeypatch.setattr(registration, "register_masks", register)
+    for name, register_fn in (("s1", None), ("s2", register)):
+        scan = tmp_path / name / "T1.nii.gz"
+        scan.parent.mkdir()
+        save_nii(NiftiImage(image), str(scan))
+        SegmentationEngine(params, opts,
+                           register_fn=register_fn).segment_scan(str(scan))
+        assert (scan.parent / "out_subcortical_rawseg.nii.gz").exists()
+    assert calls == [
+        (str(tmp_path / "s1" / "T1.nii.gz"),
+         dict(backend="torch", similarity="ssd", device=torch.device("cpu"))),
+        (str(tmp_path / "s2" / "T1.nii.gz"), {})]
+    # cached priors: nothing registers
+    SegmentationEngine(params, opts).segment_scan(
+        str(tmp_path / "s1" / "T1.nii.gz"))
+    assert len(calls) == 2
+
+
+def test_priors_miss_without_a_card_raises_from_select_device(params, phantom,
+                                                              tmp_path):
+    """``reg_backend = torch`` registers on the device ``mode`` names: a
+    net on the CPU under the default mode does not pull it to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    image, _, _ = phantom
+    scan = tmp_path / "s1" / "T1.nii.gz"
+    scan.parent.mkdir()
+    save_nii(NiftiImage(image), str(scan))
+    net = TriPlanarNet.from_params(params, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_test_scan(net, str(scan), _options(reg_backend="torch"))
+
+
+@pytest.mark.parametrize("option,match", [
+    ({"reg_backend": "jax"}, "'torch'"),
+    ({"reg_backend": "ants"}, "reg_backend"),
+    ({"reg_similarity": "ncc"}, "reg_similarity"),
+])
+def test_unknown_registration_options_raise_before_any_work(params, option,
+                                                            match):
+    """``reg_backend = jax`` raises a ValueError that names ``torch``; an
+    unknown backend or similarity raises too, when the engine is built."""
+    with pytest.raises(ValueError, match=match):
+        SegmentationEngine(params, _options(mode="cpu", **option))
+    for backend in ("native", "torch"):
+        SegmentationEngine(params, _options(mode="cpu", reg_backend=backend))
 
 
 @pytest.mark.parametrize("option", [
