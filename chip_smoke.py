@@ -104,7 +104,37 @@ and the exit code is non-zero:
        stage;
    (d) the priors-miss path of training: build_training_index on one
        phantom subject without tmp/, reg_backend = torch;
-13. one JSON line of kernel facts, then the last line
+14. the command line on the card, ``subcort_tpu_torch.cli.main`` called in
+   this process (so the gather launch count is read; set to 0 before each
+   command), once as ``python -m subcort_tpu_torch.cli`` in a process of
+   its own:
+   (a) tests/test_trainqual.py's phantom (3 subjects 48x54x44, seed 1) and
+       a configuration.cfg with mode = cuda0, batch 128, 2 epochs, the
+       model's full width: ``run`` (the checkpoint, three segmentations,
+       gather launches >= train steps + eval batches), ``evaluate`` (three
+       subject lines and the cohort line; prints the cohort Dice), ``loo
+       --folds s00,s01`` (two fold lines and the summary), ``infer`` with
+       use_fcn = False (launches >= chunks), and ``infer --profile DIR``
+       under ``python -X importtime -m`` (rc 0, a trace with CUDA kernel
+       events, no jax module imported);
+   (b) three MNI-sized scans (make_scan with seeds 1, 0, 2; the second is
+       the phase-4 subject), priors in tmp/, phase 4's seeded weights
+       through a checkpoint: ``infer`` serial, pipelined, serial, pipelined
+       (folder_pipeline), every output array-equal to the first run's; wall
+       seconds of each, os.cpu_count(), the card's name and power limit;
+       then the second scan's tmp/ removed before a pipelined run, where
+       the loader thread registers it (reg_backend = torch, phase 12(c)'s
+       template and atlas) while the first segments, and again before a
+       serial run: in both the first and third scans equal the serial
+       run's and both TF32 flags are as before; seconds of both, and
+       whether the second scan's labels agree between them;
+   (c) post_process_segmentation of the phase-7 labels with
+       cc_backend = "device" and "scipy": array-equal, no fallback warning;
+       seconds of both;
+   (d) one float32 train step at patch 40 (dropout 0) on the phase-11
+       stack, every subject's 8 corner centers in the batch of 128: finite,
+       no gather launch, loss and BN EMA card vs CPU within 1e-5;
+13. printed last: one JSON line of kernel facts, then the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -304,8 +334,9 @@ def profile_steps(torch, step, steps: int = PROFILE_STEPS,
                 by_part.items(), key=lambda kv: -kv[1]))}
 
 
-def train_phase(torch, device, image, atlas, roi) -> dict:
-    """Phase 11: training on the card (see the module docstring)."""
+def train_phase(torch, device, image, atlas, roi) -> tuple:
+    """Phase 11: training on the card (see the module docstring). Returns
+    its facts and the 3-subject stack, which phase 14(d) trains on again."""
     import dataclasses
 
     from subcort_tpu_torch import (NiftiImage, Options, SegmentationEngine,
@@ -609,7 +640,7 @@ def train_phase(torch, device, image, atlas, roi) -> dict:
     print(f"trained MNI weights, bfloat16 vs float32 labels (dense, "
           f"{len(cands)} candidates): {agreement}")
     out["trained_bf16_agreement"] = agreement
-    return out
+    return out, index.volumes
 
 
 def make_phantom(atlas_dir, shape=(64, 72, 60), seed=0, amp=3.0):
@@ -682,8 +713,11 @@ def dice(a, b) -> float:
     return 2.0 * int((a & b).sum()) / max(int(a.sum()) + int(b.sum()), 1)
 
 
-def registration_phase(torch, device, image, atlas, roi, params, spec) -> dict:
-    """Phase 12: on-device registration (see the module docstring)."""
+def registration_phase(torch, device, image, atlas, roi, params, spec,
+                       atlas_dir: Path) -> dict:
+    """Phase 12: on-device registration (see the module docstring). The
+    MNI-sized template and atlas of (c) go to ``atlas_dir``, which the
+    caller keeps for phase 14(b)."""
     from scipy import ndimage
 
     from subcort_tpu_torch import (NiftiImage, Options, SegmentationEngine,
@@ -865,7 +899,6 @@ def registration_phase(torch, device, image, atlas, roi, params, spec) -> dict:
                                         device=device)
         tmax = float(template.max())
         template = (tmax * (template / tmax) ** 1.6).astype(np.float32)
-        atlas_dir = root / "atlases"
         atlas_dir.mkdir()
         save_nii(NiftiImage(template), str(atlas_dir / "T1_template.nii.gz"))
         save_nii(NiftiImage(template_atlas),
@@ -1026,7 +1059,367 @@ def registration_phase(torch, device, image, atlas, roi, params, spec) -> dict:
     return out
 
 
+CLI_CFG = """\
+[database]
+train_folder = {folder}
+inference_folder = {folder}
+t1_name = T1.nii.gz
+roi_name = gt_15_classes.nii.gz
+
+[model]
+name = {name}
+mode = cuda0
+batch_size = 128
+patience = 5
+max_epochs = 2
+train_split = 0.25
+net_verbose = 0
+load_weights = False
+debug = False
+
+[tpu]
+use_fcn = {use_fcn}
+folder_pipeline = {pipeline}
+reg_backend = torch
+seed = 1
+"""
+
+
+def write_cfg(path: Path, folder: Path, name: str, use_fcn: bool = True,
+              pipeline: bool = False) -> str:
+    path.write_text(CLI_CFG.format(folder=folder, name=name, use_fcn=use_fcn,
+                                   pipeline=pipeline))
+    return str(path)
+
+
+def run_cli(*argv) -> tuple:
+    """``cli.main(argv)`` in this process, with the gather launch count set
+    to 0 just before it; its stdout is echoed. Returns (stdout, launches,
+    seconds); a non-zero return code fails the phase."""
+    import contextlib
+    import io
+
+    from subcort_tpu_torch import cli
+    from subcort_tpu_torch.ops import gather_kernel
+
+    buf = io.StringIO()
+    gather_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    seconds = time.perf_counter() - t0
+    launches = gather_kernel.LAUNCHES
+    text = buf.getvalue()
+    print(text, end="")
+    check(rc == 0, f"cli {argv[0]} returned {rc}")
+    return text, launches, seconds
+
+
+def json_lines(text: str) -> list:
+    return [json.loads(line) for line in text.splitlines()
+            if line.startswith("{")]
+
+
+def cli_phase(torch, device, smi, image, atlas, roi, labels, params,
+              stack, atlas_dir: Path) -> dict:
+    """Phase 14: the command line on the card (see the module docstring)."""
+    import warnings
+
+    from subcort_tpu_torch import (NiftiImage, TriPlanarNet, TriPlanarSpec,
+                                   build_training_index, init_params,
+                                   load_nii, load_options, save_nii,
+                                   save_theano_checkpoint,
+                                   train_split_stratified)
+    from subcort_tpu_torch.engine import candidate_centers
+    from subcort_tpu_torch.engine.infer import DEFAULT_CHUNK
+    from subcort_tpu_torch.engine.postprocess import post_process_segmentation
+    from subcort_tpu_torch.engine.train import ADAM, train_step
+    from subcort_tpu_torch.ops import gather_kernel
+    from subcort_tpu_torch.ops.gather_kernel import (gather_triplanar_cuda,
+                                                     prepare_gather_volume)
+    from subcort_tpu_torch.registration import make_synthetic_cohort
+
+    out = {}
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    env = os.environ.get("SUBCORT_ATLAS_DIR")
+    try:
+        # (a) train, evaluate, loo and infer on tests/test_trainqual.py's
+        # phantom, the model at its full width
+        cohort = root / "cohort"
+        make_synthetic_cohort(str(cohort), n_subjects=3, shape=(48, 54, 44),
+                              seed=1, noise=4.0, prior_error=0)
+        nets = str(root / "nets")
+        cfg = write_cfg(root / "configuration.cfg", cohort, "cli_smoke")
+        options = load_options(cfg)
+        index = build_training_index(options)
+        train_idx, valid_idx = train_split_stratified(
+            index.labels, options["train_split"])
+        epochs = options["max_epochs"]
+        steps = len(train_idx) // options["batch_size"] * epochs
+        eval_batches = -(-len(valid_idx) // max(options["batch_size"],
+                                                2048)) * epochs
+        del index
+
+        text, launches, seconds = run_cli("run", "--config", cfg,
+                                          "--weights-path", nets)
+        check(Path(nets, "cli_smoke", "cli_smoke.pkl").exists(),
+              "cli run wrote the checkpoint")
+        for sub in ("s00", "s01", "s02"):
+            seg = load_nii(str(cohort / sub /
+                               "out_subcortical_seg_prec.nii.gz")).data
+            check(seg.shape == (48, 54, 44) and bool((seg != 0).any()),
+                  f"cli run segmented {sub}")
+        check(launches >= steps + eval_batches,
+              f"cli run: gather launches {launches} >= train steps {steps} "
+              f"+ eval batches {eval_batches}")
+        print(f"cli run: {steps} train steps + {eval_batches} eval batches, "
+              f"{launches} gather launches, {seconds:.3f} s")
+        out.update(cli_run_launches=launches, cli_run_steps=steps,
+                   cli_run_eval_batches=eval_batches, cli_run_s=seconds)
+
+        text, _, seconds = run_cli("evaluate", "--config", cfg)
+        lines = json_lines(text)
+        check([l.get("subject") for l in lines[:3]] == ["s00", "s01", "s02"]
+              and all("mean_dice" in l for l in lines[:3]),
+              "cli evaluate: a line for each subject")
+        check(len(lines) == 4 and lines[3]["n_subjects"] == 3,
+              "cli evaluate: the cohort line")
+        print(f"cli evaluate: cohort Dice {lines[3]['cohort_mean_dice']} "
+              f"after 2 epochs, {seconds:.3f} s")
+        out.update(cli_cohort_dice=lines[3]["cohort_mean_dice"])
+
+        text, launches, seconds = run_cli("loo", "--config", cfg, "--folds",
+                                          "s00,s01", "--weights-path", nets)
+        lines = json_lines(text)
+        check([l.get("fold") for l in lines[:2]] == ["s00", "s01"]
+              and all(l["epochs"] == epochs for l in lines[:2]),
+              "cli loo: a line for each fold")
+        check(len(lines) == 3 and lines[2]["n_folds"] == 2,
+              "cli loo: the summary line")
+        check(launches > 0, f"cli loo trained through the kernel ({launches} "
+              "gather launches)")
+        print(f"cli loo: mean Dice {lines[2]['loo_mean_dice']}, {launches} "
+              f"gather launches, {seconds:.3f} s")
+        out.update(cli_loo_mean_dice=lines[2]["loo_mean_dice"],
+                   cli_loo_launches=launches, cli_loo_s=seconds)
+
+        patch_cfg = write_cfg(root / "patch.cfg", cohort, "cli_smoke",
+                              use_fcn=False)
+        chunks = 0
+        for sub in ("s00", "s01", "s02"):
+            t1 = np.asarray(load_nii(str(cohort / sub / "T1.nii.gz")).data)
+            mask = np.asarray(load_nii(str(
+                cohort / sub / "tmp" / "MNI_subcortical_mask.nii.gz")).data)
+            chunks += -(-len(candidate_centers(t1, options, mask))
+                        // DEFAULT_CHUNK)
+        text, launches, seconds = run_cli("infer", "--config", patch_cfg,
+                                          "--weights-path", nets)
+        check(launches >= chunks, f"cli infer (patch engine): gather "
+              f"launches {launches} >= chunks {chunks}")
+        print(f"cli infer, use_fcn = False: {chunks} chunks, {launches} "
+              f"gather launches, {seconds:.3f} s")
+        out.update(cli_infer_launches=launches, cli_infer_chunks=chunks,
+                   cli_infer_s=seconds)
+
+        # the module entry point, once, in a process of its own: imports
+        # listed by -X importtime
+        trace_dir = root / "trace"
+        proc = subprocess.run(
+            [sys.executable, "-X", "importtime", "-m", "subcort_tpu_torch.cli",
+             "infer", "--config", patch_cfg, "--weights-path", nets,
+             "--profile", str(trace_dir)],
+            cwd=str(Path(__file__).resolve().parent), capture_output=True,
+            text=True, timeout=600)
+        check(proc.returncode == 0,
+              f"python -m subcort_tpu_torch.cli infer --profile: rc "
+              f"{proc.returncode}\n{proc.stderr[-4000:]}")
+        modules = {line.rsplit("|", 1)[-1].strip()
+                   for line in proc.stderr.splitlines()
+                   if line.startswith("import time:")}
+        bad = sorted(m for m in modules if m in ("jax", "subcort_tpu")
+                     or m.startswith(("jax.", "subcort_tpu.")))
+        check("torch" in modules and not bad,
+              f"the CLI process imported torch and nothing of jax: {bad}")
+        check(f"[profile] trace written to {trace_dir}" in proc.stdout,
+              "the profile line")
+        traces = sorted(trace_dir.glob("*.json"))
+        check(len(traces) == 1, f"one trace file in {trace_dir}")
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        kernels = [e.get("name", "") for e in events
+                   if e.get("cat") == "kernel"]
+        gathers = sum("gather_triplanar" in k for k in kernels)
+        check(len(kernels) >= 1, "the trace holds CUDA kernel events")
+        print(f"python -m subcort_tpu_torch.cli infer --profile: rc 0, "
+              f"{len(modules)} modules imported, none of jax; trace "
+              f"{traces[0].stat().st_size} bytes, {len(kernels)} CUDA kernel "
+              f"events, {gathers} of them the gather kernel")
+        out.update(cli_profile_kernel_events=len(kernels),
+                   cli_profile_gather_events=gathers)
+
+        # (b) the pipelined sweep over three MNI-sized scans (mni01 is the
+        # phase-4 subject), serial and pipelined in turn
+        folder = root / "mni"
+        priors = root / "priors.nii.gz"
+        save_nii(NiftiImage(atlas), str(priors))
+        for i, seed in enumerate((1, 0, 2)):
+            t1 = image if seed == 0 else make_scan(
+                np.random.default_rng(seed))[0]
+            sub = folder / f"mni{i:02d}"
+            (sub / "tmp").mkdir(parents=True)
+            save_nii(NiftiImage(t1), str(sub / "T1.nii.gz"))
+            shutil.copyfile(priors, sub / "tmp" /
+                            "MNI_sub_probabilities.nii.gz")
+            save_nii(NiftiImage(roi.astype(np.uint8)),
+                     str(sub / "tmp" / "MNI_subcortical_mask.nii.gz"))
+        Path(nets, "mni").mkdir(parents=True)
+        save_theano_checkpoint(params, str(Path(nets, "mni", "mni.pkl")))
+        cfgs = {mode: write_cfg(root / f"{mode}.cfg", folder, "mni",
+                                pipeline=(mode == "pipelined"))
+                for mode in ("serial", "pipelined")}
+        names = ("mni00", "mni01", "mni02")
+
+        def segmented():
+            return [np.asarray(load_nii(str(
+                folder / n / "out_subcortical_seg_prec.nii.gz")).data)
+                for n in names]
+
+        walls = {"serial": [], "pipelined": []}
+        first = None
+        for mode in ("serial", "pipelined", "serial", "pipelined"):
+            _, _, seconds = run_cli("infer", "--config", cfgs[mode],
+                                    "--weights-path", nets)
+            walls[mode].append(seconds)
+            segs = segmented()
+            if first is None:
+                first = segs
+            check(all(np.array_equal(a, b) for a, b in zip(segs, first)),
+                  f"{mode} sweep: every volume equals the first serial run's")
+            print(f"cli infer, 3 MNI-sized scans, {mode}: {seconds:.3f} s")
+        print(f"folder sweep serial {walls['serial']} s, pipelined "
+              f"{walls['pipelined']} s; os.cpu_count() {os.cpu_count()}; "
+              f"{smi}")
+        out.update(cli_sweep_serial_s=walls["serial"],
+                   cli_sweep_pipelined_s=walls["pipelined"],
+                   cli_sweep_cpu_count=os.cpu_count())
+
+        # the second scan without priors: it registers on the loader
+        # thread while the first segments; then the same sweep serial
+        os.environ["SUBCORT_ATLAS_DIR"] = str(atlas_dir)
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        registering = {}
+        for mode in ("pipelined", "serial"):
+            shutil.rmtree(folder / "mni01" / "tmp")
+            _, _, registering[mode] = run_cli("infer", "--config", cfgs[mode],
+                                              "--weights-path", nets)
+            after = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+            check(after == flags, f"{mode}: TF32 flags after the sweep "
+                  f"{after} == before {flags}")
+            check((folder / "mni01" / "tmp" /
+                   "MNI_sub_probabilities.nii.gz").exists(),
+                  f"{mode}: mni01 registered")
+            segs = segmented()
+            check(np.array_equal(segs[0], first[0])
+                  and np.array_equal(segs[2], first[2]),
+                  f"{mode}: mni00 and mni02 equal the serial run's while "
+                  "mni01 registered")
+            check(bool((segs[1] != 0).any()),
+                  f"{mode}: mni01 segmented after registering")
+            if mode == "pipelined":
+                registered = segs[1]
+        same = bool(np.array_equal(segs[1], registered))
+        print(f"cli infer with mni01 registering (on the loader thread when "
+              f"pipelined): pipelined {registering['pipelined']:.3f} s, "
+              f"serial {registering['serial']:.3f} s; mni00 and mni02 equal "
+              f"the serial run's; TF32 flags {after} as before; mni01's "
+              f"labels equal in both: {same}")
+        out.update(cli_sweep_registering_s=registering,
+                   cli_sweep_registered_equal=same)
+
+        # (c) the post-process's connected components on the card, on the
+        # phase-7 labels of the phase-4 scan
+        mask = roi.astype(np.uint8)
+        results, times = {}, {}
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for backend in ("scipy", "device", "scipy", "device"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                results[backend] = post_process_segmentation(
+                    "", labels, atlas_mask=mask, cc_backend=backend,
+                    device=device)
+                times.setdefault(backend, []).append(
+                    time.perf_counter() - t0)
+        fallback = [str(w.message) for w in caught if "sweep cap"
+                    in str(w.message)]
+        check(not fallback, f"device CC converged: {fallback}")
+        check(np.array_equal(results["device"], results["scipy"]),
+              "cc_backend = device == scipy on the MNI-sized labels")
+        print(f"post_process_segmentation on the phase-4 scan's labels "
+              f"({int((labels != 0).sum())} labelled voxels): device CC "
+              f"{times['device']} s, scipy {times['scipy']} s (cold, warm); "
+              f"array-equal, no fallback")
+        out.update(cli_cc_device_s=times["device"],
+                   cli_cc_scipy_s=times["scipy"])
+
+        # (d) a train step at patch 40 on the phase-11 stack, border
+        # centers among the batch: the plain gather on the card
+        spec40 = TriPlanarSpec(patch_size=40, dropout_conv=0.0,
+                               dropout_fc=0.0)
+        init = init_params(spec40, torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(40)
+        corners = [[s, x, y, z] for s in range(SUBJECTS)
+                   for x in (0, SHAPE[0] - 1) for y in (0, SHAPE[1] - 1)
+                   for z in (0, SHAPE[2] - 1)]
+        rand = np.stack([rng.integers(0, SUBJECTS, TRAIN_BATCH)]
+                        + [rng.integers(0, n, TRAIN_BATCH) for n in SHAPE], 1)
+        centers = np.concatenate([corners, rand])[:TRAIN_BATCH]
+        centers = torch.from_numpy(centers.astype(np.int32))
+        lab = torch.from_numpy(rng.integers(0, 15, TRAIN_BATCH))
+        at = torch.from_numpy(rng.random((TRAIN_BATCH, 15)).astype(np.float32))
+
+        def step40(dev):
+            net = TriPlanarNet.from_params(init, spec40, dev, trainable=True)
+            opt = torch.optim.Adam(net.parameters(), **ADAM)
+            vol = prepare_gather_volume(torch.from_numpy(stack).to(dev))
+            views = gather_triplanar_cuda(vol, centers.to(dev), 40)
+            loss = train_step(net, opt, views, lab.to(dev), at.to(dev))
+            return float(loss), {k: v.cpu() for k, v in
+                                 net.state_dict().items()
+                                 if k.endswith((".mean", ".inv_std"))}
+
+        gather_kernel.LAUNCHES = 0
+        card = step40(device)
+        check(gather_kernel.LAUNCHES == 0,
+              f"patch 40 launched no kernel ({gather_kernel.LAUNCHES})")
+        cpu = step40(torch.device("cpu"))
+        rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+        ema = max(float((card[1][k] - cpu[1][k]).abs().max()) for k in cpu[1])
+        check(math.isfinite(card[0]), f"patch 40 step: finite loss {card[0]}")
+        check(rel <= CARD_VS_CPU_STEP and ema <= CARD_VS_CPU_STEP,
+              f"patch 40 step card vs CPU: loss {rel:.3e}, EMA {ema:.3e} <= "
+              f"{CARD_VS_CPU_STEP}")
+        print(f"train step at patch 40, batch {TRAIN_BATCH} with "
+              f"{len(corners)} corner centers, on the phase-11 stack: loss "
+              f"{card[0]:.8f} on the card, {cpu[0]:.8f} on the CPU (relative "
+              f"{rel:.3e}), BN EMA max |difference| {ema:.3e}; 0 gather "
+              "launches")
+        out.update(cli_patch40_loss_rel_diff=rel, cli_patch40_ema_diff=ema)
+        out["cli_phase_s"] = time.perf_counter() - t_phase
+        print(f"phase 14: {out['cli_phase_s']:.3f} s")
+    finally:
+        if env is None:
+            os.environ.pop("SUBCORT_ATLAS_DIR", None)
+        else:
+            os.environ["SUBCORT_ATLAS_DIR"] = env
+        shutil.rmtree(root)
+    return out
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1349,12 +1742,22 @@ def main() -> None:
               f"{eng}: {agreement} >= {floor}")
 
     # 11. training
-    train = train_phase(torch, device, image, atlas, roi)
+    train, stack = train_phase(torch, device, image, atlas, roi)
 
-    # 12. registration
-    reg = registration_phase(torch, device, image, atlas, roi, params, spec)
+    # 12. registration; its MNI-sized template and atlas stay for 14(b)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_work_"))
+    try:
+        reg = registration_phase(torch, device, image, atlas, roi, params,
+                                 spec, work / "atlases")
+
+        # 14. the command line (13, the results, is printed last)
+        cli = cli_phase(torch, device, smi, image, atlas, roi, dl, params,
+                        stack, work / "atlases")
+    finally:
+        shutil.rmtree(work)
 
     # 13. results
+    print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all")
     print(json.dumps({"kernels": [{
         "name": "gather_triplanar",
         "route": "cuda",
@@ -1373,6 +1776,7 @@ def main() -> None:
         "uses": uses,
         **train,
         **reg,
+        **cli,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -21,23 +21,38 @@ Registration: a scan without its ``tmp/`` priors goes through
 (``reg_backend = torch``: 12-dof affine, B-spline FFD, one-pass prior warp),
 or by the C++ tools on the CPU where the caller asks for them
 (``reg_backend = native``).
+The command line is ``python -m subcort_tpu_torch.cli`` (train, infer,
+run, evaluate, loo, import-atlas), as the JAX package's; leave-one-out is
+``engine.loo.run_loo``; ``folder_pipeline = True`` pipelines the folder
+sweep and ``cc_backend = device`` labels connected components on the card.
 Entry points run on the card unless ``Options.mode`` asks for the CPU.
-Options outside the ported slices raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+``data_parallel > 1``, the one option not ported, raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 __version__ = "0.1.0"
 
+# what the JAX package's __init__ exports, less ``apply`` / ``apply_branch``
+# (its functional forward: here ``TriPlanarNet``) and
+# ``enable_compilation_cache`` (torch compiles nothing ahead of a run)
 from subcort_tpu_torch.config import (Options, load_options,  # noqa: F401
                                       print_options, select_device)
 from subcort_tpu_torch.io import NiftiImage, load_nii, save_nii  # noqa: F401
 from subcort_tpu_torch.engine import (  # noqa: F401
     SegmentationEngine,
+    Subject,
     Trainer,
     TrainingIndex,
     build_training_index,
+    evaluate_fold,
+    fold_view,
+    generate_training_set,
+    leave_one_out,
+    list_training_subjects,
+    load_data,
     load_test_names,
     post_process_segmentation,
+    run_loo,
     segment_volume,
     test_scan,
     train_split_stratified,
@@ -49,5 +64,26 @@ from subcort_tpu_torch.models import (  # noqa: F401
     load_theano_checkpoint,
     num_params,
     params_from_jax,
+    predict,
+    predict_proba,
+    predict_proba_chunked,
     save_theano_checkpoint,
+    update_bn_ema,
+)
+from subcort_tpu_torch.ops import (  # noqa: F401
+    HALF,
+    PATCH,
+    balanced_negative_sample,
+    gather_atlas_vectors,
+    gather_triplanar,
+    get_mask_voxels,
+    normalize_nonzero,
+    normalize_stats,
+    pad_volume,
+    shuffle_consistent,
+)
+from subcort_tpu_torch.utils.runtime import (  # noqa: F401
+    enable_nan_checks,
+    profile_trace,
+    timer,
 )

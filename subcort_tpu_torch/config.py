@@ -26,6 +26,7 @@ import contextlib
 import dataclasses
 import os
 import re
+import threading
 from typing import Any, Iterator, Mapping
 
 import torch
@@ -86,11 +87,11 @@ class Options(Mapping[str, Any]):
     dilate_crop_iters: int = 10     # base.py:369 binary_dilation(iterations=10)
     prior_dtype: str = "uint16"     # host->device prior wire: uint16 (fixed-point, most accurate+fastest) | float16 | uint8 | float32
     probs_dtype: str = "uint8"      # device->host probability readback wire: uint8 (1/255-step fixed-point, half the bytes — labels are computed on device and unaffected) | float16 | float32 for full-precision prob maps
-    cc_backend: str = "scipy"       # post-process connected components: scipy | device
-    folder_pipeline: bool = False   # pipelined folder sweep: prefetch the next scan's host prep + async writeback (bit-identical results; wins only on multi-core hosts — on a 1-core host the prefetch thread contends with the wire feed and LOSES ~2x, measured)
+    cc_backend: str = "scipy"       # post-process connected components: scipy (host) | device (min-label propagation on the engine's device)
+    folder_pipeline: bool = False   # pipelined folder sweep: one loader thread prefetches the next scan's host prep, one writer thread post-processes and writes the last (identical files; pays only where the host has spare cores)
     fcn_max_bbox_voxels: int = 6_000_000  # dense-evaluator sub-slab budget
     fcn_spmd: bool = True           # multi-device FCN: one sharded SPMD program over the ('data',) mesh (False: host sub-bbox fan-out — pipelines uploads on a slow host link)
-    debug_nans: bool = False        # jax_debug_nans: raise on first NaN (debug only)
+    debug_nans: bool = False        # raise FloatingPointError on the first NaN in a loss, logits or probabilities read back (debug only; utils.runtime.enable_nan_checks)
     reg_backend: str = "torch"      # registration: torch (on the device ``mode`` names; the default, and the one default that differs from the JAX package's "native") | native (the C++ tools on the CPU, opt-in); the JAX package's "jax" raises here
     reg_similarity: str = "nmi"     # deformable-stage cost: nmi (default — the reference's reg_f3d is NiftyReg's NMI-driven FFD, base.py:516-521) | ssd (opt-in; wins on same-protocol pairs)
     train_dtype: str = "float32"    # training forward/backward: float32 | bfloat16 (f32 master)
@@ -251,6 +252,13 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+# exact_float32's state: the flags are process-global, so the threads
+# inside share one save and one restore
+_FLOAT32_LOCK = threading.Lock()
+_FLOAT32_DEPTH = 0
+_FLOAT32_SAVED = (True, False)
+
+
 @contextlib.contextmanager
 def exact_float32():
     """Full float32 convolutions and matmuls (TF32 off) inside the block;
@@ -260,11 +268,25 @@ def exact_float32():
     (``torch.backends.cudnn.allow_tf32 = True``), a 10-bit mantissa, while
     the reference's exact path is full float32
     (subcort_tpu/models/triplanar.py ``Precision.HIGHEST``).
+
+    The two flags are global to the process, and threads enter this block
+    at once (the pipelined folder sweep registers a scan on its prefetch
+    thread while the main thread segments): one lock and one count of the
+    threads inside. The first in saves the flags and turns TF32 off, the
+    last out restores them, and a thread in between touches nothing, so
+    no thread's float32 work runs with TF32 back on.
     """
+    global _FLOAT32_DEPTH, _FLOAT32_SAVED
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    with _FLOAT32_LOCK:
+        if _FLOAT32_DEPTH == 0:
+            _FLOAT32_SAVED = cudnn.allow_tf32, matmul.allow_tf32
+            cudnn.allow_tf32 = matmul.allow_tf32 = False
+        _FLOAT32_DEPTH += 1
     try:
         yield
     finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
+        with _FLOAT32_LOCK:
+            _FLOAT32_DEPTH -= 1
+            if _FLOAT32_DEPTH == 0:
+                cudnn.allow_tf32, matmul.allow_tf32 = _FLOAT32_SAVED

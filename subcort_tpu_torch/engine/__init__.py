@@ -1,5 +1,5 @@
 """Workload layer: inference by the dense evaluator or the patch engine,
-and training."""
+training, and the leave-one-out driver."""
 
 from subcort_tpu_torch.engine.data import (  # noqa: F401
     Subject,
@@ -18,6 +18,11 @@ from subcort_tpu_torch.engine.infer import (  # noqa: F401
     net_in_dtype,
     segment_volume,
     test_scan,
+)
+from subcort_tpu_torch.engine.loo import (  # noqa: F401
+    evaluate_fold,
+    fold_view,
+    run_loo,
 )
 from subcort_tpu_torch.engine.metrics import (  # noqa: F401
     ScanStats,

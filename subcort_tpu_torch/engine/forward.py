@@ -15,6 +15,7 @@ import torch
 from subcort_tpu_torch.models.triplanar import TriPlanarNet
 from subcort_tpu_torch.ops.gather_kernel import (GatherVolume,
                                                  gather_triplanar_cuda)
+from subcort_tpu_torch.utils.runtime import check_nans
 
 
 @torch.inference_mode()
@@ -49,6 +50,7 @@ def forward_centers(net: TriPlanarNet, volume: torch.Tensor | GatherVolume,
         ax, co, sa = (v.to(dtype) for v in
                       gather_triplanar_cuda(volume, centers[start:stop]))
         p = net(ax, co, sa, atlas_vecs[start:stop])
+        check_nans("the patch engine's probabilities", p)
         labels[start:stop] = p.argmax(dim=1)
         if want_probs:
             probs[start:stop] = p

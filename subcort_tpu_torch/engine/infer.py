@@ -21,10 +21,13 @@ JAX package does. The two engines agree on labels
 on a bfloat16 copy of the net. A scan without its ``tmp/`` priors is
 registered first (``register_masks`` under ``reg_backend`` and
 ``reg_similarity``; ``reg_backend = torch`` runs it on the engine's device).
-``data_parallel>1``, ``folder_pipeline=True`` and ``cc_backend=device``
-raise :class:`NotImplementedError` naming the ROADMAP.md item, and an
-unknown ``reg_backend`` or ``reg_similarity`` a :class:`ValueError`; nothing
-is rerouted silently.
+``folder_pipeline = True`` pipelines ``segment_folder`` (the next scan's
+host prep on a loader thread, the last scan's post-process and writes on a
+writer thread); ``cc_backend = device`` labels the post-process's
+connected components on the engine's device. ``data_parallel>1`` raises
+:class:`NotImplementedError` naming the ROADMAP.md item, and an unknown
+``reg_backend`` or ``reg_similarity`` a :class:`ValueError`; nothing is
+rerouted silently.
 
 Left out of the JAX dense host path, which shaped it for a TPU behind a
 slow link: the packed-bitmask candidate wire, compacted prior rows, the
@@ -44,6 +47,7 @@ from __future__ import annotations
 import copy
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
@@ -59,7 +63,8 @@ from subcort_tpu_torch.engine.postprocess import post_process_segmentation
 from subcort_tpu_torch.io import NiftiImage, load_nii, save_nii
 from subcort_tpu_torch.models.fcn import HALF, RF, fcn_forward_slab
 from subcort_tpu_torch.models.triplanar import (DEFAULT_SPEC, Params,
-                                                TriPlanarNet, TriPlanarSpec)
+                                                TriPlanarNet, TriPlanarSpec,
+                                                predict_proba_chunked)
 from subcort_tpu_torch.ops.gather_kernel import prepare_gather_volume
 from subcort_tpu_torch.ops.normalize import normalize_stats
 from subcort_tpu_torch.ops.patches import pad_volume
@@ -70,15 +75,10 @@ DEFAULT_CHUNK = 8192
 
 
 def check_slice_options(options: Options) -> None:
-    """Raise for every option this slice of the port does not run."""
+    """Raise for every option the port does not run (``data_parallel > 1``)
+    and for unknown registration options."""
     if int(options["data_parallel"]) > 1:
         raise not_ported("data_parallel>1", "item 9, multi-GPU")
-    if options.bool("folder_pipeline"):
-        raise not_ported("folder_pipeline=True",
-                         "item 6, LOO/CLI and the pipelined folder sweep")
-    if options["cc_backend"] == "device":
-        raise not_ported("cc_backend='device' (on-device connected "
-                         "components)", "item 8, device CC")
     check_registration(options["reg_backend"], options["reg_similarity"])
 
 
@@ -407,15 +407,52 @@ def _load_scan_inputs(scan_path: str, options: Options, register_fn=None,
     return t1, image, atlas, centers
 
 
+class _BoundedWriter:
+    """Bounded queue of deferred writes for the pipelined folder sweep
+    (copy of subcort_tpu/engine/infer.py:725-746): at most ``max_inflight`` pending
+    ``write_outputs`` closures at once (each pins a scan's output volumes,
+    a ~430 MB prob map with out_probabilities, so an unbounded backlog
+    behind a slow gzip would grow host memory by that much per queued
+    scan). ``submit`` blocks on, and raises the error of, the oldest write
+    once the bound is hit."""
+
+    def __init__(self, pool, max_inflight: int = 2):
+        self.pool = pool
+        self.max_inflight = max_inflight
+        self.futures = []
+
+    def submit(self, fn):
+        while len(self.futures) >= self.max_inflight:
+            self.futures.pop(0).result()
+        self.futures.append(self.pool.submit(fn))
+
+    def drain(self):
+        while self.futures:
+            self.futures.pop(0).result()
+
+
 def test_scan(net: TriPlanarNet, scan_path: str, options: Options,
-              register_fn=None, device: Optional[torch.device] = None) -> float:
+              register_fn=None, device: Optional[torch.device] = None,
+              _inputs=None, _writer=None) -> float:
     """Full per-scan pipeline with the reference's file contract
-    (base.py:401-458). Returns elapsed minutes, like the reference."""
+    (base.py:401-458). Returns elapsed minutes, like the reference.
+
+    ``_inputs``/``_writer`` (internal, used by ``segment_folder``'s
+    pipelined sweep): a pre-loaded ``_load_scan_inputs`` result, and a
+    :class:`_BoundedWriter` to run post-processing and file writes on, so
+    that they overlap the next scan's device work. With ``_writer`` the
+    returned minutes (and the emitted per-scan stats) cover the
+    segmentation stage only: loading happened in the prefetch thread and
+    the writes are deferred, so they are NOT comparable to serial-mode
+    numbers, which cover load + segment + write. The output files are on
+    disk once the caller drains the writer.
+    """
     check_slice_options(options)
     s_time = time.time()
     image_dir, _ = os.path.split(scan_path)
-    t1, image, atlas, centers = _load_scan_inputs(scan_path, options,
-                                                  register_fn, device)
+    t1, image, atlas, centers = (
+        _inputs if _inputs is not None
+        else _load_scan_inputs(scan_path, options, register_fn, device))
     if options.bool("debug"):
         print("    -->  num of samples to test:", len(centers))
     stats = ScanStats(scan_path).set(candidate_voxels=int(len(centers)),
@@ -431,24 +468,38 @@ def test_scan(net: TriPlanarNet, scan_path: str, options: Options,
         probs_dtype=np.dtype(options["probs_dtype"]),
         compute_dtype=options["compute_dtype"], device=device)
 
+    # what the (possibly deferred) write needs, and never t1 or image,
+    # which would pin the raw scan in the writer queue
     affine = t1.affine
     seg_dtype = image.dtype if image.dtype.kind in "iu" else np.uint8
-    if want_probs:
-        save_nii(NiftiImage(np.asarray(prob_vol, np.float32), affine),
-                 os.path.join(image_dir, "out_subcortical_prob.nii.gz"))
-    if options.bool("post_process"):
-        filtered = post_process_segmentation(
-            image_dir, label_vol,
-            bugcompat_argmax=options["bugcompat_postprocess_argmax"],
-            cc_backend=options["cc_backend"])
-        save_nii(NiftiImage(filtered.astype(seg_dtype), affine),
-                 os.path.join(image_dir, "out_subcortical_seg_prec.nii.gz"))
-    else:
-        save_nii(NiftiImage(label_vol.astype(np.uint8), affine),
-                 os.path.join(image_dir, "out_subcortical_rawseg.nii.gz"))
-    if options["net_verbose"]:
-        stats.emit()  # one JSON line: wall_seconds, voxels_per_sec, ...
-    return (time.time() - s_time) / 60.0
+    cc_device = device if device is not None else next(net.parameters()).device
+
+    def write_outputs():
+        if want_probs:
+            save_nii(NiftiImage(np.asarray(prob_vol, np.float32), affine),
+                     os.path.join(image_dir, "out_subcortical_prob.nii.gz"))
+        if options.bool("post_process"):
+            filtered = post_process_segmentation(
+                image_dir, label_vol,
+                bugcompat_argmax=options["bugcompat_postprocess_argmax"],
+                cc_backend=options["cc_backend"], device=cc_device)
+            save_nii(NiftiImage(filtered.astype(seg_dtype), affine),
+                     os.path.join(image_dir, "out_subcortical_seg_prec.nii.gz"))
+        else:
+            save_nii(NiftiImage(label_vol.astype(np.uint8), affine),
+                     os.path.join(image_dir, "out_subcortical_rawseg.nii.gz"))
+        if options["net_verbose"]:
+            stats.emit()  # one JSON line: wall_seconds, voxels_per_sec, ...
+
+    if _writer is None:
+        write_outputs()
+        return (time.time() - s_time) / 60.0
+    # pin wall_seconds and the minutes now: emit() runs later on the
+    # writer thread, and submit() may block on an older scan's write
+    stats.stop()
+    elapsed = time.time() - s_time
+    _writer.submit(write_outputs)
+    return elapsed / 60.0
 
 
 # keep the reference's public name without pytest collecting it as a test
@@ -475,18 +526,94 @@ class SegmentationEngine:
             TriPlanarNet.from_params(params, spec, self.device),
             options["compute_dtype"])
         self.register_fn = register_fn
+        self._load_stream = None
 
     def segment_scan(self, scan_path: str) -> float:
         return test_scan(self.net, scan_path, self.options,
                          register_fn=self.register_fn, device=self.device)
 
+    def predict_proba(self, batch) -> np.ndarray:
+        """``net.predict_proba`` migration shim (reference nets.py /
+        nolearn): softmax probabilities of a pre-extracted patch batch (the
+        reference's ``in1..in4`` keys or axial/coronal/sagittal/atlas), in
+        memory-bounded chunks."""
+        return predict_proba_chunked(self.net, batch).float().cpu().numpy()
+
+    def predict(self, batch) -> np.ndarray:
+        """``net.predict`` migration shim: argmax class ids."""
+        return np.argmax(self.predict_proba(batch), axis=1)
+
+    def _load_inputs(self, path: str):
+        """``_load_scan_inputs`` for the prefetch thread. On the card a
+        priors miss registers on the engine's loader stream, a CUDA stream
+        of its own, so its kernels need not queue behind the main thread's
+        segmentation; the stream is synchronized before the host arrays are
+        returned, and no tensor crosses threads. (One stream for every
+        load: the caching allocator reuses a stream's freed blocks only on
+        that stream.)"""
+        if self.device.type != "cuda":
+            return _load_scan_inputs(path, self.options, self.register_fn,
+                                     self.device)
+        if self._load_stream is None:
+            self._load_stream = torch.cuda.Stream(self.device)
+        stream = self._load_stream
+        with torch.cuda.stream(stream):
+            out = _load_scan_inputs(path, self.options, self.register_fn,
+                                    self.device)
+        stream.synchronize()
+        return out
+
     def segment_folder(self) -> dict:
-        """Serial sweep over the configured inference folder
-        (train_model.py:68-78 flow). Returns {subject: minutes}."""
+        """Sweep the configured inference folder (train_model.py:68-78
+        flow). Returns {subject: minutes}.
+
+        With ``[tpu] folder_pipeline`` on, the sweep is pipelined: while
+        the device segments scan *i*, one loader thread prepares scan
+        *i+1* (registration on a priors miss, NIfTI gunzip, candidate
+        enumeration) and one writer thread drains scan *i-1*'s
+        post-processing and gzip writes, so the per-scan host costs overlap
+        the device work instead of following it. All outputs are on disk,
+        and any write error raised, before this returns; the files equal
+        the serial sweep's (tests/test_torch_pipeline.py). Off by default:
+        it pays only where the host has spare cores. The returned minutes
+        of a pipelined scan cover its segmentation stage only
+        (:func:`test_scan`).
+        """
         t1_names, subjects = load_test_names(self.options)
+        pairs = list(zip(t1_names, subjects))
         times = {}
-        for path, sub in zip(t1_names, subjects):
-            if self.options.bool("debug"):
-                print("--> testing scan", sub)
-            times[sub] = self.segment_scan(path)
+        if not self.options.bool("folder_pipeline") or len(pairs) <= 1:
+            for path, sub in pairs:
+                if self.options.bool("debug"):
+                    print("--> testing scan", sub)
+                times[sub] = self.segment_scan(path)
+            return times
+
+        # separate single-thread pools: a slow write (a 430 MB prob-map
+        # gzip) must not starve the prefetch of the next scan
+        with ThreadPoolExecutor(1) as loader, ThreadPoolExecutor(1) as wpool:
+            writer = _BoundedWriter(wpool)
+            nxt = loader.submit(self._load_inputs, pairs[0][0])
+            try:
+                for i, (path, sub) in enumerate(pairs):
+                    inputs = nxt.result()
+                    if i + 1 < len(pairs):
+                        nxt = loader.submit(self._load_inputs,
+                                            pairs[i + 1][0])
+                    if self.options.bool("debug"):
+                        print("--> testing scan", sub)
+                    times[sub] = test_scan(self.net, path, self.options,
+                                           device=self.device,
+                                           _inputs=inputs, _writer=writer)
+                writer.drain()
+            except BaseException:
+                # a failed scan or prefetch must not discard the errors of
+                # writes already queued: wait them out, report, re-raise
+                # the first error
+                try:
+                    writer.drain()
+                except Exception as we:  # noqa: BLE001 (reported, not lost)
+                    print(f"--> additionally, a deferred output write "
+                          f"failed: {we!r}")
+                raise
         return times

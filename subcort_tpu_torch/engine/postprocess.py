@@ -1,41 +1,39 @@
 """Post-processing: per-class connected-component filtering against the
 registered atlas mask.
 
-Copy of the scipy path of subcort_tpu/engine/postprocess.py (and of
-``label_components_np``, subcort_tpu/ops/connected.py:38); copied because
-those modules import jax. Reference: base.py:460-480. For each structure
-class 1..14, label the connected components of the predicted mask and keep
-only the component with the largest overlap with the binary subcortical
-atlas mask. ``bugcompat_argmax=True`` reproduces the reference's argmax
-over components including background component 0 (SURVEY.md §2.3-7).
+Copy of subcort_tpu/engine/postprocess.py; copied because that module
+imports jax. Reference: base.py:460-480. For each structure class 1..14,
+label the connected components of the predicted mask and keep only the
+component with the largest overlap with the binary subcortical atlas mask.
+``bugcompat_argmax=True`` reproduces the reference's argmax over
+components including background component 0 (SURVEY.md §2.3-7).
 
-``cc_backend="device"`` (on-device min-label propagation) is not ported
-yet and raises.
+``cc_backend`` picks the labeler: ``"scipy"`` (host, the default) or
+``"device"`` (min-label propagation on ``device``,
+:func:`~subcort_tpu_torch.ops.connected.label_components_device`). Both
+give the same component sets, so the filter keeps the same voxels.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
 from scipy import ndimage
 
-from subcort_tpu_torch.config import not_ported
 from subcort_tpu_torch.io import load_nii
-
-
-def label_components_np(mask: np.ndarray):
-    """scipy 6-connectivity labeling: (labels int32, num)."""
-    labels, num = ndimage.label(mask)
-    return labels.astype(np.int32), int(num)
+from subcort_tpu_torch.ops.connected import (  # noqa: F401 (re-export)
+    label_components_device, label_components_np)
 
 
 def _filter_components(input_mask: np.ndarray, atlas_mask: np.ndarray,
-                       num_classes: int) -> np.ndarray:
+                       num_classes: int,
+                       label_fn=label_components_np) -> np.ndarray:
     filtered = np.zeros_like(input_mask)
     for l in range(1, num_classes):
         th = input_mask == l
-        labels, num = label_components_np(th)
+        labels, num = label_fn(th)
         if num == 0:
             continue
         overlap_counts = np.bincount(
@@ -54,16 +52,20 @@ def post_process_segmentation(image_folder: str, input_mask: np.ndarray,
                               atlas_mask: np.ndarray | None = None,
                               num_classes: int = 15,
                               bugcompat_argmax: bool = False,
-                              cc_backend: str = "scipy") -> np.ndarray:
+                              cc_backend: str = "scipy",
+                              device=None) -> np.ndarray:
     """Filter a predicted label volume; returns a new volume.
 
     ``atlas_mask`` may be passed directly; otherwise it is read from
     ``<image_folder>/tmp/MNI_subcortical_mask.nii.gz`` (base.py:465).
+    ``device`` is where ``cc_backend="device"`` labels (``None``: the
+    card); the scipy backend ignores it.
     """
     if cc_backend == "device":
-        raise not_ported("cc_backend='device' (on-device connected "
-                         "components)", "item 8, device CC")
-    if cc_backend != "scipy":
+        label_fn = functools.partial(label_components_device, device=device)
+    elif cc_backend == "scipy":
+        label_fn = label_components_np
+    else:
         raise ValueError(f"unknown cc_backend {cc_backend!r}")
     if atlas_mask is None:
         atlas_mask = load_nii(os.path.join(
@@ -100,5 +102,6 @@ def post_process_segmentation(image_folder: str, input_mask: np.ndarray,
         sl.append(slice(max(int(idx[0]) - 1, 0),
                         min(int(idx[-1]) + 2, input_mask.shape[ax])))
     sl = tuple(sl)
-    full[sl] = _filter_components(input_mask[sl], atlas_mask[sl], num_classes)
+    full[sl] = _filter_components(input_mask[sl], atlas_mask[sl], num_classes,
+                                  label_fn=label_fn)
     return full

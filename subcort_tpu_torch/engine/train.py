@@ -57,6 +57,7 @@ from subcort_tpu_torch.models.triplanar import (DEFAULT_SPEC, Params,
 from subcort_tpu_torch.ops.gather_kernel import (gather_triplanar_cuda,
                                                  prepare_gather_volume)
 from subcort_tpu_torch.ops.patches import Patches
+from subcort_tpu_torch.utils.runtime import check_nans
 
 ADAM = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
 
@@ -134,7 +135,9 @@ def train_step(net: TriPlanarNet, optimizer: torch.optim.Optimizer,
     """One optimizer step (train.py:173-215) on gathered ``views``:
     augmentation, train-mode forward, mean softmax cross-entropy on float32
     logits, backward, ``optimizer.step()``, then the BN EMA. Returns the
-    loss as a 0-dim device tensor (no host sync). TF32 is off inside."""
+    loss as a 0-dim device tensor (no host sync; with
+    ``utils.runtime.enable_nan_checks`` on, a NaN loss raises
+    ``FloatingPointError`` before the backward). TF32 is off inside."""
     with exact_float32():
         if augment:
             views = augment_views(views,
@@ -146,6 +149,7 @@ def train_step(net: TriPlanarNet, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         logits = _forward(net, views, atlas, generator, compute_dtype)
         loss = F.cross_entropy(logits.float(), labels)
+        check_nans("the train loss", loss)
         loss.backward()
         optimizer.step()
         update_bn_ema(net)
@@ -403,6 +407,7 @@ class Trainer:
                 sums.append(s)
                 corrects.append(c)
             vloss = sum(torch.stack(sums).tolist()) if sums else 0.0
+            check_nans("the validation loss", vloss)
             vcorrect = int(torch.stack(corrects).sum()) if corrects else 0
             vcount = len(valid_idx)
             valid_loss = vloss / max(vcount, 1)

@@ -18,5 +18,8 @@ from subcort_tpu_torch.models.triplanar import (  # noqa: F401
     TriPlanarSpec,
     init_params,
     num_params,
+    predict,
+    predict_proba,
+    predict_proba_chunked,
     update_bn_ema,
 )

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from subcort_tpu_torch.models.triplanar import (DEFAULT_SPEC, TriPlanarNet,
                                                 TriPlanarSpec, _Branch)
+from subcort_tpu_torch.utils.runtime import check_nans
 
 RF = 31  # receptive field of the dense branch (patch 32, even-centered)
 HALF = 16
@@ -156,6 +157,7 @@ def fcn_forward_slab(net: TriPlanarNet, slab: torch.Tensor,
     for start in range(0, m, head_chunk):
         stop = min(start + head_chunk, m)
         logits = net.head(feats[start:stop], atlas_vecs[start:stop])
+        check_nans("the dense evaluator's logits", logits)
         labels[start:stop] = logits.argmax(dim=1)
         if want_probs:
             probs[start:stop] = torch.softmax(logits, dim=-1)

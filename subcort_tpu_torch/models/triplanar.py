@@ -49,6 +49,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from subcort_tpu_torch.config import exact_float32
+
 Params = Dict[str, torch.Tensor]
 
 VIEWS = ("axial", "coronal", "sagittal")
@@ -300,3 +302,59 @@ def init_params(spec: TriPlanarSpec = DEFAULT_SPEC,
 
 def num_params(params: Params) -> int:
     return sum(int(t.numel()) for t in params.values())
+
+
+# Migration shims for the reference's net.predict_proba / net.predict -------
+def _batch_inputs(net: TriPlanarNet, batch: Dict[str, object]):
+    """The four inputs of a predict ``batch`` (triplanar.py:305-322) on the
+    net's device and in its dtype: the framework's keys
+    (axial/coronal/sagittal/atlas) or the reference's nolearn input names
+    (in1..in4, base.py:425-428). Patches may be (N, ps, ps), (N, ps, ps, 1)
+    or the reference's NCHW (N, 1, ps, ps); numpy arrays or tensors."""
+    param = next(net.parameters())
+
+    def get(new, ref):
+        x = batch.get(new, batch.get(ref))
+        if x is None:
+            raise KeyError(f"batch missing input '{new}'/'{ref}'")
+        return torch.as_tensor(x).to(param.device, param.dtype)
+
+    def patches(x):
+        c = net.spec.num_channels
+        if x.dim() == 4 and x.shape[-1] == c:
+            return x[..., 0]
+        if x.dim() == 4 and x.shape[1] == c:
+            return x[:, 0]
+        return x
+
+    return (patches(get("axial", "in1")), patches(get("coronal", "in2")),
+            patches(get("sagittal", "in3")), get("atlas", "in4"))
+
+
+@torch.no_grad()
+def predict_proba(net: TriPlanarNet, batch: Dict[str, object],
+                  return_logits: bool = False) -> torch.Tensor:
+    """Inference-mode softmax probabilities (or logits) of a patch batch
+    (reference: ``net.predict_proba``), in one forward."""
+    with exact_float32():
+        return net.eval()(*_batch_inputs(net, batch),
+                          return_logits=return_logits)
+
+
+def predict(net: TriPlanarNet, batch: Dict[str, object]) -> torch.Tensor:
+    """Argmax class ids of a patch batch (reference: ``net.predict``)."""
+    return predict_proba(net, batch, return_logits=True).argmax(dim=-1)
+
+
+@torch.no_grad()
+def predict_proba_chunked(net: TriPlanarNet, batch: Dict[str, object],
+                          chunk: int = 8192) -> torch.Tensor:
+    """:func:`predict_proba` over ``chunk``-row slices of an arbitrarily
+    large batch, so activations stay bounded (the reference fed 100k-patch
+    batches that nolearn re-chunked at 128, base.py:379,425). Torch has no
+    static shapes, so the last slice is short instead of padded."""
+    inputs = _batch_inputs(net, batch)
+    net.eval()
+    with exact_float32():
+        return torch.cat([net(*(x[i:i + chunk] for x in inputs))
+                          for i in range(0, max(len(inputs[0]), 1), chunk)])

@@ -20,8 +20,10 @@ takes only global strides that are multiples of 16 bytes.
 
 On the CPU the wrapper runs the plain version
 (:mod:`subcort_tpu_torch.ops.patches`) on the padded volume; on the card
-it launches the kernel on a :class:`GatherVolume` or raises. ``LAUNCHES``
-counts kernel launches, and nothing else.
+it launches the kernel on a :class:`GatherVolume` or raises, except at a
+patch size other than 32, which takes the plain version on the card as
+the JAX package takes its plain gather there. ``LAUNCHES`` counts kernel
+launches, and nothing else.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from subcort_tpu_torch.config import not_ported
 from subcort_tpu_torch.ops.patches import (HALF, PATCH, Patches,
                                            gather_triplanar,
                                            gather_triplanar_subjects)
@@ -200,6 +201,15 @@ def _check_prepared(vol: GatherVolume, centers: torch.Tensor) -> None:
     _check_centers(centers, 4 if vol.stacked else 3, vol.device)
 
 
+def takes_kernel(device: torch.device, patch: int) -> bool:
+    """Whether :func:`gather_triplanar_cuda` launches the kernel: on a CUDA
+    device at the kernel's 32x32 windows. Any other patch size takes the
+    plain version on the same device, the JAX package's own rule
+    (subcort_tpu/engine/train.py:465-467: the Pallas kernel only at
+    ``patch_size == 32``); the CPU always takes it."""
+    return device.type == "cuda" and patch == PATCH
+
+
 def gather_triplanar_cuda(volume: torch.Tensor | GatherVolume,
                           centers: torch.Tensor,
                           patch: int = PATCH) -> Patches:
@@ -212,28 +222,27 @@ def gather_triplanar_cuda(volume: torch.Tensor | GatherVolume,
     (N, 3), or (N, 4) for a stack, in original coordinates, on the same
     device; the caller keeps them inside the volume. CPU tensors take the
     plain version; CUDA tensors launch the kernel, which takes 32x32
-    windows only, as the TPU kernel did: another ``patch`` raises there.
+    windows only, as the TPU kernel did: another ``patch`` takes the plain
+    version on the card, from ``volume.padded()``, and launches nothing
+    (:func:`takes_kernel`).
     """
     global LAUNCHES
     if isinstance(volume, GatherVolume):
         _check_prepared(volume, centers)
     else:
         _check_padded(volume, centers)
-    if volume.device.type == "cpu":
+    if volume.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no gather for device {volume.device}")
+    if not takes_kernel(volume.device, patch):
         padded = (volume.padded() if isinstance(volume, GatherVolume)
                   else volume)
         if padded.dim() == 3:
             return gather_triplanar(padded, centers, patch)
         return gather_triplanar_subjects(padded, centers, patch)
-    if patch != PATCH:
-        raise not_ported(f"a {patch}x{patch} gather on the card (the kernel "
-                         "is 32x32 only)", "item 5, training")
     if not isinstance(volume, GatherVolume):
         raise ValueError("on the card the kernel reads the layouts of "
                          "prepare_gather_volume(padded), not the padded "
                          "tensor")
-    if volume.device.type != "cuda":
-        raise ValueError(f"no gather for device {volume.device}")
     n = int(centers.shape[0])
     if n >= 2 ** 31:
         raise ValueError(f"{n} centers exceed one launch")

@@ -129,3 +129,49 @@ def test_port_sources_and_chip_smoke_name_no_jax_import():
     for path in files:
         bad = [n for n in _imported_names(path) if _is_jax_package(n)]
         assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+# the JAX package's exports with no counterpart in the port: its
+# functional forward (the port's is TriPlanarNet) and its compilation cache
+NOT_EXPORTED = {"apply", "apply_branch", "enable_compilation_cache"}
+
+
+def _exported(path: Path) -> set:
+    return {alias.asname or alias.name
+            for node in ast.parse(path.read_text()).body
+            if isinstance(node, ast.ImportFrom)
+            for alias in node.names}
+
+
+@pytest.mark.parametrize("package", ["", "engine", "ops", "models", "utils"])
+def test_port_exports_what_the_jax_package_exports(package):
+    """Every name a JAX package ``__init__`` imports for its users, the
+    port's counterpart exports too (less ``NOT_EXPORTED``), and it resolves."""
+    import importlib
+
+    want = _exported(REPO / "subcort_tpu" / package / "__init__.py")
+    module = importlib.import_module(
+        "subcort_tpu_torch" + (f".{package}" if package else ""))
+    missing = sorted(n for n in want - NOT_EXPORTED
+                     if not hasattr(module, n))
+    assert not missing, f"subcort_tpu_torch.{package} lacks {missing}"
+
+
+@pytest.mark.parametrize("module", ["subcort_tpu_torch.cli",
+                                    "subcort_tpu_torch.engine.loo",
+                                    "subcort_tpu_torch.ops.connected",
+                                    "subcort_tpu_torch.utils.runtime"])
+def test_new_modules_alone_import_no_jax(module):
+    """Each module of the command-line slice, alone in a fresh interpreter
+    (the CLI's parser built as well), loads no ``jax`` or ``subcort_tpu``
+    module."""
+    code = (f"import sys, importlib\n"
+            f"m = importlib.import_module({module!r})\n"
+            "getattr(m, '_build_parser', lambda: None)()\n"
+            "print(sorted(k for k in sys.modules if k in ('jax', "
+            "'subcort_tpu') or k.startswith(('jax.', 'subcort_tpu.'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"

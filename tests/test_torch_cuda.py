@@ -1,6 +1,8 @@
 """Card-only tests of the port: its CUDA gather kernel, the engines, the
-train step and the on-device registration on the card against the CPU; each
-skips without a CUDA device.
+train step (at patch 32 and at patch 40, which takes the plain gather), the
+on-device registration and connected components on the card against the
+CPU, and ``exact_float32`` under two threads doing card work; each skips
+without a CUDA device.
 
 This file imports no jax and uses no conftest fixture, so it runs on a
 machine that has torch and no jax:
@@ -226,15 +228,17 @@ def _train_batch(seed=3, b=64, subjects=2, extent=(20, 22, 18)):
 def _step(params, device, vols, centers, labels, atlas, plain=False,
           spec=NARROW_NO_DROPOUT, dtype=None):
     """One train step on ``device`` from ``params``: the kernel's gather on
-    the card, or with ``plain`` the plain gather of the padded stack."""
+    the card (the plain version at a patch size other than 32), or with
+    ``plain`` the plain gather of the padded stack."""
     net = TriPlanarNet.from_params(params, spec, device, trainable=True)
     optimizer = torch.optim.Adam(net.parameters(), **ADAM)
     c = torch.from_numpy(centers).to(device)
     padded = torch.from_numpy(vols).to(device)
     if plain:
-        views = gather_triplanar_subjects(padded, c)
+        views = gather_triplanar_subjects(padded, c, spec.patch_size)
     else:
-        views = gather_triplanar_cuda(prepare_gather_volume(padded), c)
+        views = gather_triplanar_cuda(prepare_gather_volume(padded), c,
+                                      spec.patch_size)
     loss = train_step(net, optimizer, views,
                       torch.from_numpy(labels).to(device),
                       torch.from_numpy(atlas).to(device), compute_dtype=dtype)
@@ -347,6 +351,123 @@ def test_train_step_ignores_global_tf32(cuda_device):
         cudnn.allow_tf32, matmul.allow_tf32 = saved
     assert torch.equal(losses[True], losses[False])
 
+
+@pytest.mark.cuda
+def test_patch40_train_step_card_matches_cpu(cuda_device):
+    """A train step at patch 40 on the card, centers at 0 and at the last
+    index on every axis among them (windows that start at padded -4 and end
+    past the padding): the gather takes the plain version on the card,
+    launching no kernel, and the step equals the CPU's within 1e-5."""
+    spec = dataclasses.replace(NARROW_NO_DROPOUT, patch_size=40)
+    extent = (20, 22, 18)
+    vols, centers, labels, atlas = _train_batch(seed=8, extent=extent)
+    centers[:8, 1:] = [[x, y, z] for x in (0, extent[0] - 1)
+                       for y in (0, extent[1] - 1) for z in (0, extent[2] - 1)]
+    params = init_params(spec, torch.Generator().manual_seed(4))
+    before = gather_kernel.LAUNCHES
+    card = _step(params, cuda_device, vols, centers, labels, atlas, spec=spec)
+    assert gather_kernel.LAUNCHES == before
+    cpu = _step(params, torch.device("cpu"), vols, centers, labels, atlas,
+                spec=spec)
+    assert np.isfinite(float(card[0]))
+    np.testing.assert_allclose(float(card[0]), float(cpu[0]), rtol=1e-5)
+    for k, v in cpu[2].items():
+        if k.endswith((".mean", ".inv_std")):
+            np.testing.assert_allclose(card[2][k].numpy(), v.numpy(),
+                                       rtol=0, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_exact_float32_two_threads_doing_card_work(cuda_device):
+    """Thread a enters exact_float32, then thread b; a leaves first, and
+    b then runs a float32 convolution and matmul on the card. Both threads'
+    results equal the TF32-off results bit for bit (a save-and-restore per
+    thread would have turned TF32 back on under b), and the caller's flags,
+    TF32 on, come back once both have left."""
+    import threading
+
+    from subcort_tpu_torch.config import exact_float32
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(8, 64, 48, 48, generator=g, device=cuda_device)
+    w = torch.randn(64, 64, 3, 3, generator=g, device=cuda_device)
+    m = torch.randn(512, 512, generator=g, device=cuda_device)
+
+    def work():
+        out = (torch.nn.functional.conv2d(x, w, padding=1), m @ m)
+        torch.cuda.synchronize()
+        return out
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    try:
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+        exact = work()
+        cudnn.allow_tf32 = matmul.allow_tf32 = True
+        tf32 = work()
+        assert not any(torch.equal(a, b) for a, b in zip(exact, tf32)), \
+            "TF32 changes both results on this card"
+        a_in, b_in, a_out = (threading.Event() for _ in range(3))
+        results = {}
+
+        def thread_a():
+            with exact_float32():
+                a_in.set()
+                assert b_in.wait(10)
+                results["a"] = work()
+            a_out.set()
+
+        def thread_b():
+            assert a_in.wait(10)
+            with exact_float32():
+                b_in.set()
+                assert a_out.wait(10)
+                results["b"] = work()
+                results["b flags"] = (cudnn.allow_tf32, matmul.allow_tf32)
+
+        threads = [threading.Thread(target=f) for f in (thread_a, thread_b)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(30)
+        assert results["b flags"] == (False, False)
+        for name in ("a", "b"):
+            for got, want in zip(results[name], exact):
+                assert torch.equal(got, want), name
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,p", [(0, 0.12), (1, 0.3), (2, 0.5)])
+def test_device_cc_card_matches_scipy(cuda_device, seed, p):
+    """Connected components by min-label propagation on the card equal
+    scipy's labeling (the same numbering), below, at and above the
+    percolation threshold; the post-process keeps the same voxels with
+    either backend."""
+    import warnings
+
+    from subcort_tpu_torch.engine.postprocess import \
+        post_process_segmentation
+    from subcort_tpu_torch.ops.connected import (label_components_device,
+                                                 label_components_np)
+
+    rng = np.random.default_rng(seed)
+    mask = rng.random((40, 44, 36)) < p
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # no fallback to scipy
+        got, n = label_components_device(mask, device=cuda_device)
+    want, n_np = label_components_np(mask)
+    assert n == n_np > 0
+    np.testing.assert_array_equal(got, want)
+    labels = (rng.integers(1, 6, mask.shape) * mask).astype(np.uint8)
+    atlas_mask = np.zeros(mask.shape, bool)
+    atlas_mask[10:30, 12:32, 8:28] = True
+    np.testing.assert_array_equal(
+        post_process_segmentation("", labels, atlas_mask=atlas_mask,
+                                  cc_backend="device", device=cuda_device),
+        post_process_segmentation("", labels, atlas_mask=atlas_mask))
 
 
 # ------------------------------------------------------------- registration

@@ -242,31 +242,44 @@ def test_unknown_registration_options_raise_before_any_work(params, option,
     {"cc_backend": "device"},
 ])
 def test_options_outside_the_slice_raise(params, option):
-    """Options outside the ported slices raise naming ROADMAP.md;
-    compute_dtype=bfloat16, ported since (item 3), builds an engine whose
-    net computes in bfloat16."""
+    """Options outside the ported slices raise naming ROADMAP.md: only
+    data_parallel > 1 is left. compute_dtype=bfloat16 (item 3),
+    folder_pipeline=True (item 6) and cc_backend=device (item 8), ported
+    since, build an engine that runs them: a bfloat16 net, the options kept
+    as given for segment_folder and the post-process."""
+    from subcort_tpu_torch.engine.infer import check_slice_options
+
+    if option == {"data_parallel": 2}:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            SegmentationEngine(params, _options(mode="cpu", **option))
+        return
+    options = _options(mode="cpu", **option)
+    check_slice_options(options)
+    engine = SegmentationEngine(params, options)
     if option == {"compute_dtype": "bfloat16"}:
-        engine = SegmentationEngine(params, _options(mode="cpu", **option))
         assert all(t.dtype == torch.bfloat16
                    for t in engine.net.state_dict().values())
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SegmentationEngine(params, _options(mode="cpu", **option))
+    else:
+        key, value = next(iter(option.items()))
+        assert engine.options[key] == value
+        assert next(engine.net.parameters()).dtype == torch.float32
 
 
 @pytest.mark.parametrize("call", ["engine_fcn", "bf16", "device_cc"])
 def test_functions_refuse_what_is_not_ported(net, phantom, call):
-    """Device connected components raise naming ROADMAP.md. The dense
-    evaluator and bfloat16, ported since (items 2 and 3), run: one centre
-    gets a label and the dense path counts its slab."""
+    """Nothing of these is refused any more. The dense evaluator and
+    bfloat16 (items 2 and 3) run: one centre gets a label and the dense
+    path counts its slab. Device connected components (item 8) run on the
+    device given and keep the mask's one component, as scipy does."""
     from subcort_tpu_torch.models import fcn
 
     image, atlas, mask = phantom
     centers = np.array([[10, 10, 10]], np.int32)
     if call == "device_cc":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            post_process_segmentation("", mask, atlas_mask=mask,
-                                      cc_backend="device")
+        got = post_process_segmentation("", mask, atlas_mask=mask,
+                                        cc_backend="device",
+                                        device=torch.device("cpu"))
+        np.testing.assert_array_equal(got, mask)
         return
     before = fcn.SLABS
     kw = ({"engine": "fcn"} if call == "engine_fcn"

@@ -544,13 +544,19 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="item 9"):
         Trainer(_options("dp", data_parallel=2), spec=SPEC,
                 weights_path=str(tmp_path))
-    # the kernel takes 32x32 windows only: another size raises off the CPU
+    # the kernel takes 32x32 windows only: another size takes the plain
+    # gather on the card, as the JAX package's does (ROADMAP.md §C 6), and
+    # a device with neither raises, whatever the size
+    from subcort_tpu_torch.ops.gather_kernel import takes_kernel
+
+    assert not takes_kernel(torch.device("cuda", 0), 24)
     vols, centers = _batch()[:2]
     meta = torch.device("meta")
-    with pytest.raises(NotImplementedError, match="24x24"):
-        gather_triplanar_cuda(
-            prepare_gather_volume(torch.from_numpy(vols).to(meta)),
-            torch.from_numpy(centers).to(meta), 24)
+    for patch in (24, 32):
+        with pytest.raises(ValueError, match="no gather for device meta"):
+            gather_triplanar_cuda(
+                prepare_gather_volume(torch.from_numpy(vols).to(meta)),
+                torch.from_numpy(centers).to(meta), patch)
     if not torch.cuda.is_available():
         # the default mode asks for the card, and never falls back
         with pytest.raises(RuntimeError, match="(?i)cuda"):
