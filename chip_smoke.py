@@ -134,8 +134,37 @@ and the exit code is non-zero:
    (d) one float32 train step at patch 40 (dropout 0) on the phase-11
        stack, every subject's 8 corner centers in the batch of 128: finite,
        no gather launch, loss and BN EMA card vs CPU within 1e-5;
-13. printed last: one JSON line of kernel facts, then the last line
-   {"ok": true, "device": {...}}.
+15. the multi-device paths on the one card (no scaling can show here):
+   (a) the phase-4 scan through segment_volume over [cuda:0, cuda:0],
+       one host thread per entry: the patch engine (labels equal to one
+       device's on every candidate; gather launches, counted from 0 just
+       before, equal to the two parts' chunks), the dense engine with
+       fcn_spmd True and False (labels equal; no gather launch, a slab per
+       entry at least); warm seconds of each beside one device's;
+   (b) one step (TriPlanarSpec() with its dropout, augmentation on) from
+       seeded params on 2 x 128 rows of phase 11's index, under cuDNN's
+       deterministic algorithms: two gloo ranks on the card
+       (parallel/distributed.py::launch) against one process at 256 rows:
+       in float32, loss and BN EMA within 1e-5 (the shares of gradient
+       elements within 1e-4 of their tensor's largest and of parameters
+       within 1e-5 printed: a max-pool argmax or PReLU sign near a tie,
+       and Adam's first step on a near-zero gradient, move a few float32
+       values by more, as far as the one-process float32 step is from
+       float64); in float64, the same and every gradient within 1e-9 of
+       its tensor's largest and every parameter after Adam within 1e-5;
+       the ranks' parameters equal.
+       Step ms by CUDA events (cuDNN's default algorithms) of both, and
+       of one NCCL rank. Then Trainer.fit over two
+       ranks on the index capped at 6,912 for 2 epochs: finite falling
+       loss, gather launches per rank = its steps + eval batches, files
+       from rank 0 only;
+   (c) one NCCL rank (world 1): its step equals the plain step bit for
+       bit, both under cuDNN's deterministic algorithms;
+   (d) Trainer(data_parallel = 2) raises ValueError with one card, and
+       _data_parallel_devices clamps to [cuda:0] with its note;
+13. printed last: one JSON line of kernel facts (with dp_* keys: the
+   two-device patch launches, launches per rank, the backends), then the
+   last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -199,6 +228,15 @@ KERNEL_PARTS = (
     ("dropout masks", ("bernoulli", "distribution")),
 )
 QUALITY_VALID_ACC, QUALITY_DICE = 0.90, 0.85
+# the multi-device paths (phase 15): one global step of 2 x DP_BATCH rows
+# against one process; the short fit's index and epochs; timed steps
+DP_BATCH = 128
+DP_STEP_TOL = 1e-5
+DP_GRAD_TOL = 1e-4
+DP_F64_TOL = 1e-9
+DP_FIT_CAP = 6912
+DP_FIT_EPOCHS = 2
+DP_TIMED_STEPS = 20
 # registration (phase 12); the floors of (b) are bench_reg.py's
 REG_RESAMPLE_TOL = 1e-4
 REG_DICE_FLOOR, REG_MIN_JAC_FLOOR = 0.93, 0.05
@@ -336,7 +374,8 @@ def profile_steps(torch, step, steps: int = PROFILE_STEPS,
 
 def train_phase(torch, device, image, atlas, roi) -> tuple:
     """Phase 11: training on the card (see the module docstring). Returns
-    its facts and the 3-subject stack, which phase 14(d) trains on again."""
+    its facts and the capped index, whose 3-subject stack phases 14(d) and
+    15(b) train on again."""
     import dataclasses
 
     from subcort_tpu_torch import (NiftiImage, Options, SegmentationEngine,
@@ -640,7 +679,7 @@ def train_phase(torch, device, image, atlas, roi) -> tuple:
     print(f"trained MNI weights, bfloat16 vs float32 labels (dense, "
           f"{len(cands)} candidates): {agreement}")
     out["trained_bf16_agreement"] = agreement
-    return out, index.volumes
+    return out, index
 
 
 def make_phantom(atlas_dir, shape=(64, 72, 60), seed=0, amp=3.0):
@@ -1418,6 +1457,331 @@ def cli_phase(torch, device, smi, image, atlas, roi, labels, params,
     return out
 
 
+def _dp_step_rank(rank, world, device, workdir, tag, dtypes,
+                  timed_steps=0):
+    """A rank of phase 15(b) and (c): one train step on this rank's share
+    of the global batch (``workdir``'s seeded params, rows and generator
+    seed; the stack memory-mapped) in each of ``dtypes`` ("float32",
+    "float64"), each saved for the caller as ``step_{tag}_{rank}_{dtype}``;
+    then, in float32 with cuDNN's default algorithms, ``timed_steps`` more
+    steps timed by CUDA events (rank 0 saves their ms)."""
+    import torch
+
+    from subcort_tpu_torch import TriPlanarNet, TriPlanarSpec
+    from subcort_tpu_torch.engine.train import ADAM, train_step
+    from subcort_tpu_torch.ops.gather_kernel import (gather_triplanar_cuda,
+                                                     prepare_gather_volume)
+
+    work = Path(workdir)
+    setup = torch.load(work / "setup.pt")
+    rows = slice(rank * len(setup["labels"]) // world,
+                 (rank + 1) * len(setup["labels"]) // world)
+    volume = prepare_gather_volume(torch.from_numpy(
+        np.load(work / "stack.npy", mmap_mode="c")).to(device))
+    centers, labels, atlas = (setup[k][rows].to(device)
+                              for k in ("centers", "labels", "atlas"))
+
+    def make_step(dtype):
+        net = TriPlanarNet.from_params(setup["params"], TriPlanarSpec(),
+                                       device, trainable=True).to(dtype)
+        opt = torch.optim.Adam(net.parameters(), **ADAM)
+        gen = torch.Generator(device=device).manual_seed(setup["seed"])
+
+        def step():
+            views = tuple(v.to(dtype)
+                          for v in gather_triplanar_cuda(volume, centers))
+            return train_step(net, opt, views, labels, atlas.to(dtype), gen,
+                              augment=True)
+        return net, step
+
+    for name in dtypes:
+        net, step = make_step(getattr(torch, name))
+        loss = float(step())
+        torch.save({"loss": loss, "state": {k: v.cpu() for k, v in
+                                            net.state_dict().items()},
+                    "grads": {k: p.grad.cpu()
+                              for k, p in net.named_parameters()}},
+                   work / f"step_{tag}_{rank}_{name}.pt")
+    if timed_steps:
+        torch.backends.cudnn.deterministic = False
+        ms = time_ms(torch, make_step(torch.float32)[1], timed_steps)
+        if rank == 0:
+            (work / f"step_ms_{tag}.json").write_text(json.dumps(ms))
+
+
+def dp_phase(torch, device, image, atlas, roi, params, spec, cands,
+             index) -> dict:
+    """Phase 15: the multi-device paths on the one card (see the module
+    docstring)."""
+    import contextlib
+    import io
+
+    from subcort_tpu_torch import (Options, Trainer, TrainingIndex,
+                                   TriPlanarNet, init_params, segment_volume,
+                                   train_split_stratified)
+    from subcort_tpu_torch.engine.infer import (DEFAULT_CHUNK,
+                                                _data_parallel_devices)
+    from subcort_tpu_torch.models import fcn
+    from subcort_tpu_torch.ops import gather_kernel
+    from subcort_tpu_torch.parallel import distributed
+    from subcort_tpu_torch.parallel.mesh import shard_rows
+
+    out = {}
+    t_phase = time.perf_counter()
+    two = [device, device]
+    sel = tuple(cands.T)
+
+    # (a) inference over [cuda:0, cuda:0], one host thread per entry
+    net = TriPlanarNet.from_params(params, spec, device)
+
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels = segment_volume(net, image, atlas, cands, **kw)[0]
+        return labels, time.perf_counter() - t0
+
+    parts = shard_rows(len(cands), 2, align=DEFAULT_CHUNK)
+    part_chunks = [-(-(p.stop - p.start) // DEFAULT_CHUNK) for p in parts]
+    check(sum(part_chunks) == -(-len(cands) // DEFAULT_CHUNK),
+          f"two parts of whole chunks {part_chunks}")
+    seconds = {}
+    for name, kw in (("patch", dict(engine="patch")),
+                     ("dense_spmd", dict(engine="fcn", fcn_spmd=True)),
+                     ("dense_fanout", dict(engine="fcn", fcn_spmd=False))):
+        timed(**kw)  # warm-ups of both
+        timed(devices=two, **kw)
+        one, one_s = timed(**kw)
+        gather_kernel.LAUNCHES = 0
+        fcn.SLABS = 0
+        got, two_s = timed(devices=two, **kw)
+        launches, slabs = gather_kernel.LAUNCHES, fcn.SLABS
+        differ = int((got[sel] != one[sel]).sum())
+        print(f"two devices, {name}: {len(cands)} candidates, {differ} "
+              f"labels differ from one device; {launches} gather launches, "
+              f"{slabs} slab(s); segment_volume {two_s:.4f} s, one device "
+              f"{one_s:.4f} s (warm; the same card either way)")
+        check(differ == 0 and np.array_equal(got, one),
+              f"two devices, {name}: labels == one device's")
+        if name == "patch":
+            check(launches == sum(part_chunks),
+                  f"two-device patch launches {launches} == the parts' "
+                  f"chunks {part_chunks}")
+            out["dp_patch_launches"] = launches
+            out["dp_patch_part_chunks"] = part_chunks
+        else:
+            check(launches == 0 and slabs >= 2,
+                  f"two devices, {name}: no gather launch ({launches}), a "
+                  f"slab per entry at least ({slabs})")
+        seconds[name] = {"two_devices_s": two_s, "one_device_s": one_s}
+    out["dp_inference_s"] = seconds
+    del net
+
+    # (b), (c) the synced step: two gloo ranks on the card, and one NCCL
+    # rank, each against the one-process step on the same 2 x DP_BATCH rows
+    # TriPlanarSpec() with its dropout, and augmentation on in the step:
+    # the ranks draw the global batch's masks and keep their rows
+    train_idx, _ = train_split_stratified(index.labels, 0.25)
+    rows = train_idx[:2 * DP_BATCH]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    cudnn = torch.backends.cudnn
+    flags = cudnn.enabled, cudnn.deterministic, cudnn.benchmark
+    try:
+        np.save(root / "stack.npy", index.volumes)
+        torch.save({"params": init_params(spec,
+                                          torch.Generator().manual_seed(3)),
+                    "seed": 17,
+                    "centers": torch.from_numpy(index.centers[rows]),
+                    "labels": torch.from_numpy(
+                        index.labels[rows].astype(np.int64)),
+                    "atlas": torch.from_numpy(index.atlas[rows])},
+                   root / "setup.pt")
+        # cuDNN's deterministic algorithms for the compared steps; the
+        # launcher hands the ranks these flags
+        cudnn.enabled, cudnn.deterministic, cudnn.benchmark = \
+            True, True, False
+        both = ("float32", "float64")
+        t0 = time.perf_counter()
+        backend2 = distributed.launch(
+            _dp_step_rank, two, (str(root), "gloo2", both, DP_TIMED_STEPS),
+            timeout=600)
+        two_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        backend1 = distributed.launch(
+            _dp_step_rank, [device],
+            (str(root), "nccl1", ("float32",), DP_TIMED_STEPS), timeout=600)
+        one_rank_s = time.perf_counter() - t0
+        # the one-process step, in this process
+        cudnn.deterministic = True
+        _dp_step_rank(0, 1, device, str(root), "plain", both, DP_TIMED_STEPS)
+        steps = {(tag, r, d): torch.load(root / f"step_{tag}_{r}_{d}.pt")
+                 for tag, r, d in [("gloo2", 0, "float32"),
+                                   ("gloo2", 1, "float32"),
+                                   ("gloo2", 0, "float64"),
+                                   ("gloo2", 1, "float64"),
+                                   ("nccl1", 0, "float32"),
+                                   ("plain", 0, "float32"),
+                                   ("plain", 0, "float64")]}
+        ms = {t: json.loads((root / f"step_ms_{t}.json").read_text())
+              for t in ("gloo2", "nccl1", "plain")}
+    finally:
+        cudnn.enabled, cudnn.deterministic, cudnn.benchmark = flags
+        shutil.rmtree(root)
+    check(backend2 == "gloo" and backend1 == "nccl",
+          f"backends: two ranks on one card {backend2}, one rank {backend1}")
+
+    def compare(dtype):
+        """The 2-rank step against the one-process step in ``dtype``:
+        (loss relative difference, BN EMA and parameters after Adam max
+        |difference|, gradients' largest difference over their tensor's
+        largest gradient, the shares of gradient elements within
+        DP_GRAD_TOL of it and of parameters within DP_STEP_TOL, the ranks'
+        parameters equal)."""
+        ranks = [steps["gloo2", r, dtype] for r in (0, 1)]
+        plain = steps["plain", 0, dtype]
+        loss = float(np.mean([r["loss"] for r in ranks]))
+        facts = {"loss_rel": abs(loss - plain["loss"]) / abs(plain["loss"]),
+                 "ema": 0.0, "params": 0.0, "grads": 0.0}
+        g_ok = p_ok = total = 0
+        for k, v in plain["state"].items():
+            diff = float((ranks[0]["state"][k] - v).abs().max())
+            if k.endswith((".mean", ".inv_std")):
+                facts["ema"] = max(facts["ema"], diff)
+                continue
+            g, g2 = plain["grads"][k], ranks[0]["grads"][k]
+            scale = float(g.abs().max()) or 1.0
+            facts["params"] = max(facts["params"], diff)
+            facts["grads"] = max(facts["grads"],
+                                 float((g2 - g).abs().max()) / scale)
+            g_ok += int(((g2 - g).abs() <= DP_GRAD_TOL * scale).sum())
+            p_ok += int(((ranks[0]["state"][k] - v).abs()
+                         <= DP_STEP_TOL).sum())
+            total += g.numel()
+        facts.update(grad_share=g_ok / total, param_share=p_ok / total,
+                     same=all(torch.equal(ranks[0]["state"][k],
+                                          ranks[1]["state"][k])
+                              for k in plain["state"]))
+        return facts
+
+    f32, f64 = compare("float32"), compare("float64")
+    # how far the one-process float32 step is from the float64 one
+    exact, plain = steps["plain", 0, "float64"], steps["plain", 0, "float32"]
+    own = max(float((plain["grads"][k].double() - g).abs().max())
+              / (float(g.abs().max()) or 1.0)
+              for k, g in exact["grads"].items())
+    print(f"synced step, two gloo ranks on one card, {DP_BATCH} rows each "
+          f"(augmentation and dropout on) vs one process at "
+          f"{2 * DP_BATCH}, float64: loss relative difference "
+          f"{f64['loss_rel']:.3e}, gradients' largest difference over "
+          f"their tensor's largest {f64['grads']:.3e}, BN EMA "
+          f"{f64['ema']:.3e}, parameters after Adam {f64['params']:.3e}; "
+          f"float32: loss {f32['loss_rel']:.3e}, BN EMA {f32['ema']:.3e}, "
+          f"{f32['grad_share']:.6f} of the gradient elements within "
+          f"{DP_GRAD_TOL} of their tensor's largest and "
+          f"{f32['param_share']:.6f} of the parameters within "
+          f"{DP_STEP_TOL} (gradients {f32['grads']:.3e}, parameters "
+          f"{f32['params']:.3e} at most); the one-process float32 step's "
+          f"gradients differ from float64 by up to {own:.3e} of a "
+          f"tensor's largest; the ranks' parameters equal: float32 "
+          f"{f32['same']}, float64 {f64['same']}")
+    for name, f in (("float32", f32), ("float64", f64)):
+        check(f["loss_rel"] <= DP_STEP_TOL and f["ema"] <= DP_STEP_TOL
+              and f["same"], f"2-rank {name} loss, BN EMA, ranks equal: {f}")
+    check(f64["grads"] <= DP_F64_TOL and f64["params"] <= DP_STEP_TOL,
+          f"2-rank float64 gradients and parameters: {f64}")
+    nccl = steps["nccl1", 0, "float32"]
+    bit = (nccl["loss"] == plain["loss"] and all(
+        torch.equal(nccl[part][k], plain[part][k])
+        for part in ("state", "grads") for k in plain[part]))
+    print(f"synced step, one NCCL rank (world 1) vs the plain step: "
+          f"bit-equal {bit} (loss {nccl['loss']!r} vs {plain['loss']!r})")
+    check(bit, "the NCCL world-1 step == the plain step, bit for bit")
+    print(f"train step ms (CUDA events, {DP_TIMED_STEPS} steps, cuDNN "
+          f"default algorithms, augmentation and dropout on): two gloo "
+          f"ranks on one card {ms['gloo2']:.4f} ms per global step of "
+          f"{2 * DP_BATCH}; one NCCL rank at {2 * DP_BATCH} "
+          f"{ms['nccl1']:.4f} ms; one process at {2 * DP_BATCH} "
+          f"{ms['plain']:.4f} ms. The launches took {two_s:.3f} s (two "
+          f"ranks) and {one_rank_s:.3f} s (one). Gloo stages every "
+          f"collective through the host, and both ranks share one card "
+          f"and the host's cores: no scaling is measured here")
+    out.update(dp_backends={"two_ranks_one_card": backend2,
+                            "one_rank": backend1},
+               dp_step_ms_two_ranks=ms["gloo2"],
+               dp_step_ms_one_rank_nccl=ms["nccl1"],
+               dp_step_ms_one_process=ms["plain"],
+               dp_step_float32=f32, dp_step_float64=f64,
+               dp_step_one_process_float32_vs_float64=own)
+
+    # (b) a short fit over two gloo ranks on the card
+    cap = min(DP_FIT_CAP, len(index))
+    small_index = TrainingIndex(index.volumes, index.centers[:cap],
+                                index.labels[:cap], index.atlas[:cap],
+                                index.subject_names)
+    t_idx, v_idx = train_split_stratified(small_index.labels, 0.25)
+    steps = len(t_idx) // (2 * DP_BATCH)
+    evals = [-(-(p.stop - p.start) // max(DP_BATCH, 2048))
+             for p in shard_rows(len(v_idx), 2)]
+    want = [DP_FIT_EPOCHS * (steps + e) for e in evals]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dpfit_"))
+    try:
+        options = Options(experiment="dp", mode="cuda0", batch_size=DP_BATCH,
+                          max_epochs=DP_FIT_EPOCHS, patience=5,
+                          train_split=0.25, net_verbose=1, load_weights=False,
+                          debug=False, seed=0)
+        trainer = Trainer(options, spec, weights_path=str(root),
+                          devices=two)
+        t0 = time.perf_counter()
+        history = trainer.fit(small_index)
+        fit_s = time.perf_counter() - t0
+        files = sorted(p.name for p in (root / "dp").iterdir())
+        lines = (root / "dp" / "dp_history.jsonl").read_text().splitlines()
+    finally:
+        shutil.rmtree(root)
+    losses = [h["train_loss"] for h in history]
+    print(f"fit over two gloo ranks on one card: {DP_FIT_EPOCHS} epochs of "
+          f"{steps} global steps of {2 * DP_BATCH}, train losses {losses}, "
+          f"epoch seconds {[round(h['dur'], 4) for h in history]} "
+          f"({steps * 2 * DP_BATCH / history[-1]['dur']:.1f} samples/s in "
+          f"the last), {fit_s:.3f} s with the ranks' start; gather "
+          f"launches per rank {trainer.rank_launches} (steps + eval "
+          f"batches: {want}); files {files}, {len(lines)} history lines")
+    check(len(history) == DP_FIT_EPOCHS and bool(np.isfinite(losses).all())
+          and losses[-1] < losses[0], f"finite, falling losses {losses}")
+    check(trainer.rank_launches == want,
+          f"launches per rank {trainer.rank_launches} == {want}")
+    check(files == ["dp.pkl", "dp_history.jsonl", "dp_history.pkl",
+                    "dp_state.pkl"] and len(lines) == DP_FIT_EPOCHS,
+          f"only rank 0 wrote: {files}, {len(lines)} lines")
+    out.update(dp_rank_launches=trainer.rank_launches,
+               dp_fit_steps=DP_FIT_EPOCHS * steps,
+               dp_fit_epoch_s=[h["dur"] for h in history])
+
+    # (d) the refusals: no second card here
+    if torch.cuda.device_count() == 1:
+        try:
+            Trainer(Options(mode="cuda0", data_parallel=2, net_verbose=0),
+                    spec, weights_path=tempfile.gettempdir())
+            refused = False
+        except ValueError as e:
+            refused = "requested 2 devices, have 1" in str(e)
+        check(refused, "Trainer(data_parallel=2) on one card raises "
+              "ValueError")
+        note = io.StringIO()
+        with contextlib.redirect_stdout(note):
+            got = _data_parallel_devices(Options(mode="cuda0",
+                                                 data_parallel=2,
+                                                 net_verbose=1))
+        check(got == [device] and "only 1 device(s) present" in
+              note.getvalue(), f"data_parallel=2 clamps to {got}: "
+              f"{note.getvalue().strip()!r}")
+        print(f"refusals: Trainer(data_parallel=2) raises ValueError; "
+              f"inference clamps to {got} with the note "
+              f"{note.getvalue().strip()!r}")
+    out["dp_phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 15: {out['dp_phase_s']:.3f} s")
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1742,7 +2106,7 @@ def main() -> None:
               f"{eng}: {agreement} >= {floor}")
 
     # 11. training
-    train, stack = train_phase(torch, device, image, atlas, roi)
+    train, train_index = train_phase(torch, device, image, atlas, roi)
 
     # 12. registration; its MNI-sized template and atlas stay for 14(b)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_work_"))
@@ -1752,9 +2116,13 @@ def main() -> None:
 
         # 14. the command line (13, the results, is printed last)
         cli = cli_phase(torch, device, smi, image, atlas, roi, dl, params,
-                        stack, work / "atlases")
+                        train_index.volumes, work / "atlases")
     finally:
         shutil.rmtree(work)
+
+    # 15. the multi-device paths on the one card
+    dp = dp_phase(torch, device, image, atlas, roi, params, spec, cands,
+                  train_index)
 
     # 13. results
     print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all")
@@ -1777,6 +2145,7 @@ def main() -> None:
         **train,
         **reg,
         **cli,
+        **dp,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,7 +6,8 @@ package: where it needs a jax-free module of that package (``config``'s
 ``Options`` contract, ``io``'s NIfTI), it keeps its own copy, which the
 tests hold to the original.
 
-Ported so far: the inference path, training and registration. Inference:
+Ported: the inference path, training, registration, the command line
+and data parallelism; no option raises ``NotImplementedError``. Inference:
 ``SegmentationEngine`` / ``test_scan`` -> ``segment_volume`` -> the dense
 à-trous evaluator (``engine="fcn"``, what ``"auto"`` picks for a dense
 candidate set) or the patch engine (chunked tri-planar gather -> CNN ->
@@ -25,9 +26,12 @@ The command line is ``python -m subcort_tpu_torch.cli`` (train, infer,
 run, evaluate, loo, import-atlas), as the JAX package's; leave-one-out is
 ``engine.loo.run_loo``; ``folder_pipeline = True`` pipelines the folder
 sweep and ``cc_backend = device`` labels connected components on the card.
-Entry points run on the card unless ``Options.mode`` asks for the CPU.
-``data_parallel > 1``, the one option not ported, raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``data_parallel > 1`` runs over several devices (``parallel/``):
+inference from one process, one host thread per device; training one
+process per device, each step the one-process step on the global batch;
+a multi-host folder sweep as one process group, each process taking its
+share of the subjects. Entry points run on the card unless
+``Options.mode`` asks for the CPU.
 """
 
 __version__ = "0.1.0"

@@ -136,6 +136,12 @@ def main(argv=None) -> int:
         options["intensity_augment"] = args.intensity_augment
     select_device(options)  # before any work: no card, no run (mode = cpu)
 
+    # a multi-host launch (SUBCORT_NUM_PROCESSES > 1) joins its process
+    # group here; segment_folder then takes this process's share of the
+    # subjects. One process: a no-op
+    from subcort_tpu_torch.parallel.distributed import initialize
+    initialize()
+
     from subcort_tpu_torch.utils.runtime import (enable_nan_checks,
                                                  profile_trace)
     if options.bool("debug_nans"):

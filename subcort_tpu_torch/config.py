@@ -81,7 +81,7 @@ class Options(Mapping[str, Any]):
     #     reference behavior) -------------------------------------------------
     seed: int = 42                  # replaces the reference's unseeded RNG (base.py:322-328)
     compute_dtype: str = "float32"  # float32 | bfloat16 for the forward pass
-    data_parallel: int = 1          # number of mesh devices for DP
+    data_parallel: int = 1          # devices of data parallelism (parallel/): inference fans out over them, training runs a rank on each
     use_fcn: bool = True            # à-trous fully-convolutional fast path
     bugcompat_postprocess_argmax: bool = False  # reproduce base.py:474 quirk (§2.3-7)
     dilate_crop_iters: int = 10     # base.py:369 binary_dilation(iterations=10)
@@ -90,7 +90,7 @@ class Options(Mapping[str, Any]):
     cc_backend: str = "scipy"       # post-process connected components: scipy (host) | device (min-label propagation on the engine's device)
     folder_pipeline: bool = False   # pipelined folder sweep: one loader thread prefetches the next scan's host prep, one writer thread post-processes and writes the last (identical files; pays only where the host has spare cores)
     fcn_max_bbox_voxels: int = 6_000_000  # dense-evaluator sub-slab budget
-    fcn_spmd: bool = True           # multi-device FCN: one sharded SPMD program over the ('data',) mesh (False: host sub-bbox fan-out — pipelines uploads on a slow host link)
+    fcn_spmd: bool = True           # multi-device dense engine: one equal sub-slab of the candidate bbox per device (False: sub-bboxes of at most bbox/devices voxels dealt round-robin)
     debug_nans: bool = False        # raise FloatingPointError on the first NaN in a loss, logits or probabilities read back (debug only; utils.runtime.enable_nan_checks)
     reg_backend: str = "torch"      # registration: torch (on the device ``mode`` names; the default, and the one default that differs from the JAX package's "native") | native (the C++ tools on the CPU, opt-in); the JAX package's "jax" raises here
     reg_similarity: str = "nmi"     # deformable-stage cost: nmi (default — the reference's reg_f3d is NiftyReg's NMI-driven FFD, base.py:516-521) | ssd (opt-in; wins on same-protocol pairs)
@@ -207,15 +207,6 @@ def print_options(options: Options) -> None:
     for k in options:
         print(k, ":", options[k])
     print("-" * 50)
-
-
-def not_ported(feature: str, item: str) -> NotImplementedError:
-    """The error every option outside the ported slice raises, naming the
-    ROADMAP.md queue-A item that will bring it. Options are never rerouted
-    silently to something that is ported."""
-    return NotImplementedError(
-        f"{feature} is not ported to subcort_tpu_torch yet "
-        f"(ROADMAP.md, queue A: {item})")
 
 
 def select_device(options: Options) -> torch.device:

@@ -24,16 +24,21 @@ registered first (``register_masks`` under ``reg_backend`` and
 ``folder_pipeline = True`` pipelines ``segment_folder`` (the next scan's
 host prep on a loader thread, the last scan's post-process and writes on a
 writer thread); ``cc_backend = device`` labels the post-process's
-connected components on the engine's device. ``data_parallel>1`` raises
-:class:`NotImplementedError` naming the ROADMAP.md item, and an unknown
-``reg_backend`` or ``reg_similarity`` a :class:`ValueError`; nothing is
-rerouted silently.
+connected components on the engine's device. ``data_parallel > 1``
+segments each scan over several devices from this process, one host
+thread per device (``segment_volume(devices=...)``: the patch engine's
+centers in parts of whole chunks, the dense engine's bbox in one sub-slab
+per device with ``fcn_spmd`` or in sub-bboxes dealt round-robin without;
+:mod:`subcort_tpu_torch.parallel`), and under a multi-host launch
+``segment_folder`` takes this process's share of the subjects. An unknown
+``reg_backend`` or ``reg_similarity`` raises a :class:`ValueError`;
+nothing is rerouted silently.
 
 Left out of the JAX dense host path, which shaped it for a TPU behind a
 slow link: the packed-bitmask candidate wire, compacted prior rows, the
-power-of-two shape ladder, the 6 MB slab-split gate and the multi-device
-fan-out. The port ships the raw slab, int64 candidate indices and every
-candidate's prior row, and runs sub-bboxes serially.
+power-of-two shape ladder and the 6 MB slab-split gate. The port ships
+the raw slab, int64 candidate indices and every candidate's prior row,
+and on one device runs the sub-bboxes serially.
 
 Output contract as the reference's (base.py:445-455):
 ``out_subcortical_prob.nii.gz`` (with out_probabilities; values in 1/255
@@ -47,15 +52,15 @@ from __future__ import annotations
 import copy
 import os
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from scipy import ndimage
 
-from subcort_tpu_torch.config import (Options, exact_float32, not_ported,
-                                      select_device)
+from subcort_tpu_torch.config import Options, exact_float32, select_device
 from subcort_tpu_torch.engine.data import _configured_register
 from subcort_tpu_torch.engine.forward import forward_centers
 from subcort_tpu_torch.engine.metrics import ScanStats
@@ -69,16 +74,16 @@ from subcort_tpu_torch.ops.gather_kernel import prepare_gather_volume
 from subcort_tpu_torch.ops.normalize import normalize_stats
 from subcort_tpu_torch.ops.patches import pad_volume
 from subcort_tpu_torch.ops.sampling import get_mask_voxels
+from subcort_tpu_torch.parallel import distributed
+from subcort_tpu_torch.parallel.mesh import (DeviceWorkers, available_devices,
+                                             replicate)
 from subcort_tpu_torch.registration.driver import check_registration
 
 DEFAULT_CHUNK = 8192
 
 
 def check_slice_options(options: Options) -> None:
-    """Raise for every option the port does not run (``data_parallel > 1``)
-    and for unknown registration options."""
-    if int(options["data_parallel"]) > 1:
-        raise not_ported("data_parallel>1", "item 9, multi-GPU")
+    """Raise for an unknown registration option, before any work."""
     check_registration(options["reg_backend"], options["reg_similarity"])
 
 
@@ -264,31 +269,65 @@ def _fcn_scatter_results(labels_b, probs_b, lo, dims, centers, cs,
             probs_b[rel[:, 0], rel[:, 1], rel[:, 2]]
 
 
-def _fcn_run_bboxes(net, image, atlas, bboxes, centers, label_vol, prob_vol,
-                    want_probs, prior_dtype, probs_dtype, device):
-    """The dense evaluator over the sub-bboxes, one after another
-    (infer.py:367-452 on a single device)."""
-    stats = normalize_stats(image)
-    shape = image.shape
+def _fcn_slab(net, image, stats, atlas, lo, dims, prior_dtype, probs_dtype,
+              centers, want_probs, device):
+    """One sub-bbox through the dense evaluator on ``device``: host prep,
+    upload, :func:`fcn_forward_slab`, readback. Returns the arguments of
+    :func:`_fcn_scatter_results` after the volumes' (labels, probs, lo,
+    dims, centers, cs), or None when no candidate lies inside."""
+    slab, vecs, cs, lin, norm = _fcn_slab_inputs(
+        image, stats, atlas, lo, dims, image.shape, prior_dtype, centers)
+    if slab is None:
+        return None
 
     def to_device(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(device)
 
-    for lo, dims in bboxes:
-        slab, vecs, cs, lin, norm = _fcn_slab_inputs(
-            image, stats, atlas, lo, dims, shape, prior_dtype, centers)
-        if slab is None:
-            continue  # no candidates in this sub-bbox
-        if norm is not None:
-            norm = (to_device(norm[0]),) + norm[1:]
-        labels_b, probs_b = fcn_forward_slab(
-            net, to_device(slab), to_device(vecs), want_probs,
-            probs_dtype=getattr(torch, np.dtype(probs_dtype).name),
-            gather_idx=None if lin is None else to_device(lin), norm=norm)
-        _fcn_scatter_results(
-            labels_b.cpu().numpy(),
+    if norm is not None:
+        norm = (to_device(norm[0]),) + norm[1:]
+    labels_b, probs_b = fcn_forward_slab(
+        net, to_device(slab), to_device(vecs), want_probs,
+        probs_dtype=getattr(torch, np.dtype(probs_dtype).name),
+        gather_idx=None if lin is None else to_device(lin), norm=norm)
+    return (labels_b.cpu().numpy(),
             probs_b.cpu().numpy() if want_probs else None, lo, dims,
-            centers, cs, label_vol, prob_vol, want_probs)
+            centers, cs)
+
+
+def _fcn_run_bboxes(nets, image, atlas, bboxes, centers, label_vol, prob_vol,
+                    want_probs, prior_dtype, probs_dtype, workers):
+    """The dense evaluator over the sub-bboxes (infer.py:367-452), with
+    ``nets[device]`` on each device. ``workers`` is None on one device:
+    the sub-bboxes run one after another in this thread. Otherwise a
+    :class:`~subcort_tpu_torch.parallel.mesh.DeviceWorkers`: they are dealt
+    round-robin over its entries, with at most ``2 x`` its entries' slabs
+    in flight before the host scatters the oldest."""
+    stats = normalize_stats(image)
+    args = (image, stats, atlas)
+    tail = (prior_dtype, probs_dtype, centers, want_probs)
+    if workers is None:
+        (device, net), = nets.items()
+        for lo, dims in bboxes:
+            res = _fcn_slab(net, *args, lo, dims, *tail, device)
+            if res is not None:  # else no candidates in this sub-bbox
+                _fcn_scatter_results(*res, label_vol, prob_vol, want_probs)
+        return
+    ndev = len(workers.devices)
+    pending = deque()
+
+    def scatter_oldest():
+        res = pending.popleft().result()
+        if res is not None:
+            _fcn_scatter_results(*res, label_vol, prob_vol, want_probs)
+
+    for i, (lo, dims) in enumerate(bboxes):
+        dev = workers.devices[i % ndev]
+        pending.append(workers.submit(i % ndev, _fcn_slab, nets[dev], *args,
+                                      lo, dims, *tail, dev))
+        while len(pending) > 2 * ndev:
+            scatter_oldest()
+    while pending:
+        scatter_oldest()
 
 
 def _normalized_padded(image: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -318,7 +357,9 @@ def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
                    fcn_max_bbox_voxels: int = 6_000_000,
                    prior_dtype=np.uint16, probs_dtype=np.uint8,
                    compute_dtype: str = "float32",
-                   device: Optional[torch.device] = None):
+                   device: Optional[torch.device] = None,
+                   devices: Optional[Sequence[torch.device]] = None,
+                   fcn_spmd: bool = True):
     """Segment one raw T1 volume at ``centers`` (N, 3).
 
     Returns (label_vol uint8, prob_vol float32 or None) as numpy arrays.
@@ -329,10 +370,24 @@ def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
     ``prior_dtype`` is the dense path's prior fixed point; the patch path
     takes float32 rows, as in JAX. The device work runs with TF32 off
     (:func:`~subcort_tpu_torch.config.exact_float32`).
+
+    ``devices``, a list of more than one ``torch.device`` (an entry may
+    repeat), fans the work out from this process, one host thread per
+    entry (infer.py:529-547, 634-649): the patch engine over whole chunks
+    of the centers (:func:`~subcort_tpu_torch.parallel.infer_sharded.
+    predict_labels_sharded`); the dense engine over equal sub-slabs of the
+    candidate bbox, one per entry (``fcn_spmd``, the default:
+    :func:`~subcort_tpu_torch.parallel.fcn_sharded.fcn_run_spmd`), or over
+    sub-bboxes of at most ``ceil(bbox voxels / entries)`` dealt round-robin
+    (``fcn_spmd=False``). ``None`` or one entry is the single-device path.
     """
     if engine not in ("auto", "fcn", "patch"):
         raise ValueError(f"unknown engine {engine!r}")
-    if device is None:
+    if devices is not None and len(devices) == 1:
+        device, devices = devices[0], None
+    if devices is not None:
+        devices = [torch.device(d) for d in devices]
+    elif device is None:
         device = next(net.parameters()).device
     image = np.asarray(image)
     shape = tuple(int(s) for s in image.shape)
@@ -355,12 +410,17 @@ def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
     lo, dims = _bbox_of(centers, shape)
     if engine == "auto":
         engine = "fcn" if int(np.prod(dims)) <= 30 * n else "patch"
+    fcn_args = (image, atlas, centers, label_vol, prob_vol, want_probs,
+                prior_dtype, probs_dtype)
     with exact_float32():
+        if devices is not None:
+            _segment_on_devices(net, devices, engine, lo, dims, chunk,
+                                fcn_max_bbox_voxels, fcn_spmd, *fcn_args)
+            return label_vol, prob_vol
         if engine == "fcn":
-            _fcn_run_bboxes(net, image, atlas,
+            _fcn_run_bboxes({torch.device(device): net}, image, atlas,
                             _split_bbox(lo, dims, fcn_max_bbox_voxels),
-                            centers, label_vol, prob_vol, want_probs,
-                            prior_dtype, probs_dtype, device)
+                            *fcn_args[2:], None)
             return label_vol, prob_vol
 
         volume = _normalized_padded(image, device)
@@ -373,11 +433,72 @@ def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
             net, volume, torch.from_numpy(centers).to(device),
             torch.from_numpy(vecs).to(device), chunk, want_probs,
             probs_dtype=getattr(torch, np.dtype(probs_dtype).name))
-    label_vol[centers[:, 0], centers[:, 1], centers[:, 2]] = labels.cpu().numpy()
-    if want_probs:
-        prob_vol[centers[:, 0], centers[:, 1], centers[:, 2]] = \
-            _dequantize_probs(probs.cpu().numpy())
+    _scatter_centers(labels.cpu().numpy(),
+                     probs.cpu().numpy() if want_probs else None,
+                     centers, label_vol, prob_vol)
     return label_vol, prob_vol
+
+
+def _scatter_centers(labels, probs, centers, label_vol, prob_vol) -> None:
+    """The patch engine's per-center results into the volumes."""
+    label_vol[centers[:, 0], centers[:, 1], centers[:, 2]] = labels
+    if probs is not None:
+        prob_vol[centers[:, 0], centers[:, 1], centers[:, 2]] = \
+            _dequantize_probs(probs)
+
+
+def _segment_on_devices(net, devices, engine, lo, dims, chunk,
+                        fcn_max_bbox_voxels, fcn_spmd, image, atlas, centers,
+                        label_vol, prob_vol, want_probs, prior_dtype,
+                        probs_dtype) -> None:
+    """:func:`segment_volume`'s multi-device branch: ``net`` replicated
+    once per distinct device, one host thread per entry of ``devices``."""
+    nets = replicate(net, devices)
+    with DeviceWorkers(devices) as workers:
+        if engine == "patch":
+            from subcort_tpu_torch.parallel.infer_sharded import \
+                predict_labels_sharded
+            labels, probs = predict_labels_sharded(
+                nets, workers, image, centers,
+                _atlas_vectors_host(atlas, centers), chunk, want_probs,
+                probs_dtype)
+            _scatter_centers(labels, probs, centers, label_vol, prob_vol)
+        elif fcn_spmd:
+            from subcort_tpu_torch.parallel.fcn_sharded import fcn_run_spmd
+
+            # one sub-slab per entry, inside an outer split that keeps each
+            # entry's slab within fcn_max_bbox_voxels
+            for sub_lo, sub_dims in _split_bbox(
+                    lo, dims, len(devices) * fcn_max_bbox_voxels):
+                fcn_run_spmd(nets, workers, image, atlas, sub_lo, sub_dims,
+                             centers, label_vol, prob_vol, want_probs,
+                             prior_dtype, probs_dtype)
+        else:
+            # split finely enough that every entry gets work
+            vox = int(np.prod(dims))
+            cap = min(fcn_max_bbox_voxels, max(1, -(-vox // len(devices))))
+            _fcn_run_bboxes(nets, image, atlas, _split_bbox(lo, dims, cap),
+                            centers, label_vol, prob_vol, want_probs,
+                            prior_dtype, probs_dtype, workers)
+
+
+def _data_parallel_devices(options: Options) -> Optional[list]:
+    """The device list of ``[tpu] data_parallel`` (infer.py:673-688): None
+    for 1; else the first N devices of ``mode``'s kind from its index on
+    (``cudaK`` -> ``cuda:K ...``; ``cpu`` has one), clamped to what exists
+    with a note under ``net_verbose``, so one configuration runs on any
+    machine, as the JAX package's does. A device that ``mode`` names and
+    that is absent raises (``select_device``)."""
+    dp = int(options["data_parallel"])
+    if dp <= 1:
+        return None
+    avail = available_devices(options.mode)
+    if dp > len(avail):
+        if options["net_verbose"]:
+            print(f"--> data_parallel={dp} requested but only {len(avail)} "
+                  "device(s) present; using all of them")
+        dp = len(avail)
+    return avail[:dp]
 
 
 def _load_scan_inputs(scan_path: str, options: Options, register_fn=None,
@@ -433,9 +554,13 @@ class _BoundedWriter:
 
 def test_scan(net: TriPlanarNet, scan_path: str, options: Options,
               register_fn=None, device: Optional[torch.device] = None,
+              devices: Optional[Sequence[torch.device]] = None,
               _inputs=None, _writer=None) -> float:
     """Full per-scan pipeline with the reference's file contract
     (base.py:401-458). Returns elapsed minutes, like the reference.
+    ``devices`` (default: what ``[tpu] data_parallel`` asks for,
+    :func:`_data_parallel_devices`) goes to :func:`segment_volume`, with
+    ``fcn_spmd``.
 
     ``_inputs``/``_writer`` (internal, used by ``segment_folder``'s
     pipelined sweep): a pre-loaded ``_load_scan_inputs`` result, and a
@@ -466,7 +591,10 @@ def test_scan(net: TriPlanarNet, scan_path: str, options: Options,
         fcn_max_bbox_voxels=options["fcn_max_bbox_voxels"],
         prior_dtype=np.dtype(options["prior_dtype"]),
         probs_dtype=np.dtype(options["probs_dtype"]),
-        compute_dtype=options["compute_dtype"], device=device)
+        compute_dtype=options["compute_dtype"], device=device,
+        devices=(devices if devices is not None
+                 else _data_parallel_devices(options)),
+        fcn_spmd=options.bool("fcn_spmd"))
 
     # what the (possibly deferred) write needs, and never t1 or image,
     # which would pin the raw scan in the writer queue
@@ -514,7 +642,9 @@ class SegmentationEngine:
     :func:`~subcort_tpu_torch.models.load_theano_checkpoint` or
     :func:`~subcort_tpu_torch.models.params_from_jax`); the device comes
     from ``options.mode`` (:func:`~subcort_tpu_torch.config.select_device`),
-    and the net is held in ``options.compute_dtype``.
+    and the net is held in ``options.compute_dtype``. ``[tpu]
+    data_parallel > 1`` segments every scan over ``devices``
+    (:func:`_data_parallel_devices`).
     """
 
     def __init__(self, params: Params, options: Options,
@@ -522,6 +652,7 @@ class SegmentationEngine:
         check_slice_options(options)
         self.options = options
         self.device = select_device(options)
+        self.devices = _data_parallel_devices(options)
         self.net = net_in_dtype(
             TriPlanarNet.from_params(params, spec, self.device),
             options["compute_dtype"])
@@ -530,7 +661,8 @@ class SegmentationEngine:
 
     def segment_scan(self, scan_path: str) -> float:
         return test_scan(self.net, scan_path, self.options,
-                         register_fn=self.register_fn, device=self.device)
+                         register_fn=self.register_fn, device=self.device,
+                         devices=self.devices)
 
     def predict_proba(self, batch) -> np.ndarray:
         """``net.predict_proba`` migration shim (reference nets.py /
@@ -577,10 +709,17 @@ class SegmentationEngine:
         the serial sweep's (tests/test_torch_pipeline.py). Off by default:
         it pays only where the host has spare cores. The returned minutes
         of a pipelined scan cover its segmentation stage only
-        (:func:`test_scan`).
+        (:func:`test_scan`). Under a multi-host launch
+        (:func:`~subcort_tpu_torch.parallel.distributed.initialize` with
+        more than one process) each process sweeps its strided share of the
+        subjects (``host_shard``).
         """
         t1_names, subjects = load_test_names(self.options)
         pairs = list(zip(t1_names, subjects))
+        if distributed.process_count() > 1:
+            # a multi-host launch: this process's strided slice of the
+            # subjects (infer.py:897-902)
+            pairs = distributed.host_shard(pairs)
         times = {}
         if not self.options.bool("folder_pipeline") or len(pairs) <= 1:
             for path, sub in pairs:
@@ -604,6 +743,7 @@ class SegmentationEngine:
                         print("--> testing scan", sub)
                     times[sub] = test_scan(self.net, path, self.options,
                                            device=self.device,
+                                           devices=self.devices,
                                            _inputs=inputs, _writer=writer)
                 writer.drain()
             except BaseException:

@@ -35,19 +35,21 @@ train_loss, valid_loss, valid_accuracy, *_best flags, dur).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import pickle
+import tempfile
 import time
-from typing import Optional
+from pathlib import Path
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from subcort_tpu_torch.config import (Options, exact_float32, not_ported,
-                                      select_device)
+from subcort_tpu_torch.config import Options, exact_float32, select_device
 from subcort_tpu_torch.engine.data import TrainingIndex
 from subcort_tpu_torch.models.importer import (load_theano_checkpoint,
                                                save_theano_checkpoint)
@@ -57,6 +59,8 @@ from subcort_tpu_torch.models.triplanar import (DEFAULT_SPEC, Params,
 from subcort_tpu_torch.ops.gather_kernel import (gather_triplanar_cuda,
                                                  prepare_gather_volume)
 from subcort_tpu_torch.ops.patches import Patches
+from subcort_tpu_torch.parallel import distributed, sync_bn
+from subcort_tpu_torch.parallel.mesh import make_devices, shard_rows
 from subcort_tpu_torch.utils.runtime import check_nans
 
 ADAM = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
@@ -137,20 +141,36 @@ def train_step(net: TriPlanarNet, optimizer: torch.optim.Optimizer,
     logits, backward, ``optimizer.step()``, then the BN EMA. Returns the
     loss as a 0-dim device tensor (no host sync; with
     ``utils.runtime.enable_nan_checks`` on, a NaN loss raises
-    ``FloatingPointError`` before the backward). TF32 is off inside."""
+    ``FloatingPointError`` before the backward). TF32 is off inside.
+
+    Inside a data-parallel block (:mod:`~subcort_tpu_torch.parallel.sync_bn`)
+    this rank's rows are its share of a global batch, and the step is the
+    one-process step on that batch: augmentation and dropout drawn for the
+    global batch (this rank keeping its rows), BN over every rank's rows,
+    and the gradients averaged over the ranks before Adam. The loss
+    returned is this rank's rows' mean; the global loss is its mean over
+    the ranks."""
     with exact_float32():
         if augment:
-            views = augment_views(views,
-                                  *draw_view_augment(len(labels), generator))
+            selected, r = draw_view_augment(
+                sync_bn.global_rows(len(labels)), generator)
+            views = augment_views(views, sync_bn.local_rows(selected),
+                                  sync_bn.local_rows(r, 1))
         if intensity_augment:
-            views = augment_intensity(views, *draw_intensity_augment(
-                views[0].shape, intensity_augment, generator))
+            shape = ((sync_bn.global_rows(views[0].shape[0]),)
+                     + tuple(views[0].shape[1:]))
+            gain, shift, sigma, noise = draw_intensity_augment(
+                shape, intensity_augment, generator)
+            views = augment_intensity(
+                views, *(sync_bn.local_rows(t) for t in (gain, shift, sigma)),
+                sync_bn.local_rows(noise, 1))
         net.train()
         optimizer.zero_grad(set_to_none=True)
         logits = _forward(net, views, atlas, generator, compute_dtype)
         loss = F.cross_entropy(logits.float(), labels)
         check_nans("the train loss", loss)
         loss.backward()
+        sync_bn.all_reduce_gradients(net.parameters())
         optimizer.step()
         update_bn_ema(net)
     return loss.detach()
@@ -224,6 +244,19 @@ class Trainer:
     without one, ``init_params`` draws it from a generator seeded with
     ``options.seed``. ``steps_per_call`` is how many steps run between two
     reads of their losses back to the host.
+
+    Data parallelism (train.py:486-566): ``n_devices`` (default
+    ``options.data_parallel``) above 1 trains on the first that many
+    devices of ``mode``'s kind (:func:`~subcort_tpu_torch.parallel.mesh.
+    make_devices`, which raises :class:`ValueError` when fewer exist), or
+    ``devices`` names them (an entry may repeat). :meth:`fit` then starts
+    one process per device (:func:`~subcort_tpu_torch.parallel.
+    distributed.launch`): every step is the one-process step on the global
+    batch of ``batch_size x devices`` rows, each rank gathering its
+    ``batch_size`` with the kernel; validation is split over the ranks and
+    its sums reduced; only rank 0 writes files; afterwards this trainer
+    holds rank 0's final state. Inside a multi-process group made by
+    someone else (a multi-host launch) more than one device raises.
     """
 
     def __init__(self, options: Options, spec: TriPlanarSpec = DEFAULT_SPEC,
@@ -232,18 +265,36 @@ class Trainer:
                  n_devices: Optional[int] = None,
                  lr_schedule: Optional[tuple] = None,
                  steps_per_call: int = 32,
-                 intensity_augment: Optional[float] = None):
-        ndev = n_devices if n_devices is not None else options["data_parallel"]
-        if int(ndev) > 1:
-            raise not_ported(f"training on {ndev} devices", "item 9, multi-GPU")
+                 intensity_augment: Optional[float] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
+        if devices is not None:
+            self.devices = [torch.device(d) for d in devices]
+        else:
+            ndev = int(n_devices if n_devices is not None
+                       else options["data_parallel"])
+            self.devices = (make_devices(ndev, options.mode) if ndev > 1
+                            else [select_device(options)])
+        if len({d.type for d in self.devices}) != 1:
+            raise ValueError(f"devices of one kind, got {self.devices}")
+        if len(self.devices) > 1 and torch.distributed.is_initialized():
+            raise ValueError(
+                f"training on {len(self.devices)} devices inside an existing "
+                "process group (a multi-host launch) is not supported")
         self.options = options
         self.spec = spec
-        self.device = select_device(options)
+        self.weights_path = weights_path
+        self.device = self.devices[0]
         self.augment = augment
         self.intensity_augment = float(
             options.get("intensity_augment", 0.0)
             if intensity_augment is None else intensity_augment)
         self.shuffle_each_epoch = shuffle_each_epoch
+        # what a rank needs, besides the state, to rebuild this trainer
+        self._config = dict(augment=augment,
+                            shuffle_each_epoch=shuffle_each_epoch,
+                            lr_schedule=lr_schedule,
+                            steps_per_call=steps_per_call,
+                            intensity_augment=self.intensity_augment)
         name = options["experiment"]
         self.exp_dir = os.path.join(weights_path, name)
         os.makedirs(self.exp_dir, exist_ok=True)
@@ -279,6 +330,8 @@ class Trainer:
         td = str(options["train_dtype"]).strip()
         self.train_dtype = (torch.bfloat16 if td in ("bfloat16", "bf16")
                             else None)
+        # after a fit over several devices: each rank's gather launches
+        self.rank_launches = None
 
         if options.bool("load_weights"):
             self._try_resume()
@@ -293,18 +346,33 @@ class Trainer:
                 for k, v in self.net.state_dict().items()}
 
     # -------------------------------------------------------------- persistence
+    def state(self) -> dict:
+        """What the state file holds: numpy state dict, Adam state, epoch,
+        best loss and epoch, and both generators' states."""
+        return {
+            "params": _to_numpy(self.net.state_dict()),
+            "optimizer": _to_numpy(self.optimizer.state_dict()),
+            "epoch": self.epoch,
+            "best_valid_loss": self.best_valid_loss,
+            "best_epoch": self.best_epoch,
+            "generator": self.generator.get_state().numpy(),
+            "shuffle_rng": self.shuffle_rng.bit_generator.state,
+        }
+
+    def _load_state(self, st: dict) -> None:
+        self.net.load_state_dict(_to_torch(st["params"]))
+        self.optimizer.load_state_dict(_to_torch(st["optimizer"]))
+        self.epoch = st["epoch"]
+        self.best_valid_loss = st["best_valid_loss"]
+        self.best_epoch = st["best_epoch"]
+        self.generator.set_state(torch.from_numpy(st["generator"]))
+        self.shuffle_rng.bit_generator.state = st["shuffle_rng"]
+
     def _try_resume(self):
         """Warm start (nets.py:248-253 semantics: silent pass on missing)."""
         if os.path.exists(self.state_file):
             with open(self.state_file, "rb") as fh:
-                st = pickle.load(fh)
-            self.net.load_state_dict(_to_torch(st["params"]))
-            self.optimizer.load_state_dict(_to_torch(st["optimizer"]))
-            self.epoch = st["epoch"]
-            self.best_valid_loss = st["best_valid_loss"]
-            self.best_epoch = st["best_epoch"]
-            self.generator.set_state(torch.from_numpy(st["generator"]))
-            self.shuffle_rng.bit_generator.state = st["shuffle_rng"]
+                self._load_state(pickle.load(fh))
             if os.path.exists(self.history_file):
                 with open(self.history_file) as fh:
                     self.history = [json.loads(l) for l in fh if l.strip()]
@@ -322,32 +390,43 @@ class Trainer:
                 print("    --> loading weights from", self.weights_file)
 
     def _save_state(self):
-        st = {
-            "params": _to_numpy(self.net.state_dict()),
-            "optimizer": _to_numpy(self.optimizer.state_dict()),
-            "epoch": self.epoch,
-            "best_valid_loss": self.best_valid_loss,
-            "best_epoch": self.best_epoch,
-            "generator": self.generator.get_state().numpy(),
-            "shuffle_rng": self.shuffle_rng.bit_generator.state,
-        }
         tmp = self.state_file + ".tmp"
         with open(tmp, "wb") as fh:
-            pickle.dump(st, fh)
+            pickle.dump(self.state(), fh)
         os.replace(tmp, self.state_file)
+
+    @classmethod
+    def from_handoff(cls, hand: dict, device: torch.device) -> "Trainer":
+        """A rank's trainer on ``device``: the handed-off options, state and
+        history of the trainer that started the ranks
+        (:func:`~subcort_tpu_torch.parallel.distributed.write_handoff`)."""
+        options = dataclasses.replace(hand["options"], load_weights=False)
+        trainer = cls(options, hand["spec"], hand["weights_path"],
+                      params=_to_torch(hand["state"]["params"]),
+                      devices=[device], **hand["config"])
+        trainer._load_state(hand["state"])
+        trainer.history = list(hand["history"])
+        return trainer
 
     # -------------------------------------------------------------- epoch loop
     def fit(self, index: TrainingIndex, max_epochs: Optional[int] = None):
         """Train until max_epochs or early stopping; returns history list."""
         opts = self.options
         max_epochs = max_epochs if max_epochs is not None else opts["max_epochs"]
+        if len(self.devices) > 1:
+            return self._fit_ranks(index, max_epochs)
         patience = opts["patience"]
         batch_size = opts["batch_size"]
-        verbose = opts["net_verbose"]
+        dp = sync_bn.active()
+        rank, world = (dp.rank, dp.world) if dp is not None else (0, 1)
+        writes = rank == 0
+        verbose = opts["net_verbose"] and writes
         dev = self.device
 
         train_idx, valid_idx = train_split_stratified(
             index.labels, opts["train_split"])
+        # every rank starts from rank 0's parameters
+        sync_bn.broadcast_module(self.net)
 
         # the index rows and the stack go to the device once per fit, the
         # stack in the gather kernel's layouts
@@ -359,10 +438,15 @@ class Trainer:
         labels = torch.from_numpy(index.labels.astype(np.int64)).to(dev)
         atlas = torch.from_numpy(
             np.ascontiguousarray(index.atlas, np.float32)).to(dev)
-        valid = torch.from_numpy(valid_idx).to(dev)
+        # validation: each rank takes its contiguous share
+        valid = torch.from_numpy(
+            valid_idx[shard_rows(len(valid_idx), world)[rank]]).to(dev)
         v_centers, v_labels, v_atlas = centers[valid], labels[valid], atlas[valid]
         # validation is forward-only: large batches
         eval_bs = max(batch_size, 2048)
+        # a global step takes batch_size rows from each rank
+        step_rows = batch_size * world
+        mine = slice(rank * batch_size, (rank + 1) * batch_size)
 
         while self.epoch < max_epochs:
             self.epoch += 1
@@ -376,13 +460,21 @@ class Trainer:
             if self.shuffle_each_epoch:
                 order = self.shuffle_rng.permutation(train_idx)
 
-            # ---- train epoch: full batches, the remainder dropped; losses
-            # read back once per steps_per_call steps
-            n_full = (len(order) // batch_size) * batch_size
-            rows = torch.from_numpy(order[:n_full]).to(dev)
+            # ---- train epoch: full global batches, the remainder dropped;
+            # losses read back once per steps_per_call steps
+            n_full = (len(order) // step_rows) * step_rows
+            rows = torch.from_numpy(order[:n_full].reshape(
+                -1, step_rows)[:, mine].reshape(-1)).to(dev)
             e_centers, e_labels, e_atlas = centers[rows], labels[rows], atlas[rows]
             losses, pending = [], []
-            for i in range(0, n_full, batch_size):
+
+            def flush():
+                # the global batch's loss of each step: the mean over ranks
+                losses.extend(sync_bn.all_reduce_mean(
+                    torch.stack(pending)).tolist())
+                pending.clear()
+
+            for i in range(0, len(rows), batch_size):
                 sl = slice(i, i + batch_size)
                 views = gather_triplanar_cuda(volume, e_centers[sl], patch)
                 pending.append(train_step(
@@ -391,24 +483,27 @@ class Trainer:
                     intensity_augment=self.intensity_augment,
                     compute_dtype=self.train_dtype))
                 if len(pending) == self.steps_per_call:
-                    losses += torch.stack(pending).tolist()
-                    pending = []
+                    flush()
             if pending:
-                losses += torch.stack(pending).tolist()
+                flush()
             train_loss = (float(np.mean(np.asarray(losses, np.float32)))
                           if losses else float("nan"))
 
             # ---- validation
             sums, corrects = [], []
-            for i in range(0, len(valid_idx), eval_bs):
+            for i in range(0, len(v_labels), eval_bs):
                 sl = slice(i, i + eval_bs)
                 views = gather_triplanar_cuda(volume, v_centers[sl], patch)
                 s, c = eval_step(self.net, views, v_labels[sl], v_atlas[sl])
                 sums.append(s)
                 corrects.append(c)
             vloss = sum(torch.stack(sums).tolist()) if sums else 0.0
-            check_nans("the validation loss", vloss)
             vcorrect = int(torch.stack(corrects).sum()) if corrects else 0
+            if dp is not None:
+                total = sync_bn.all_reduce_sum(torch.tensor(
+                    [vloss, vcorrect], dtype=torch.float64, device=dev))
+                vloss, vcorrect = float(total[0]), int(total[1])
+            check_nans("the validation loss", vloss)
             vcount = len(valid_idx)
             valid_loss = vloss / max(vcount, 1)
             valid_acc = vcorrect / max(vcount, 1)
@@ -418,9 +513,10 @@ class Trainer:
             if improved:
                 self.best_valid_loss = valid_loss
                 self.best_epoch = self.epoch
-                # SaveWeights(only_best=True): reference-format pickle
-                save_theano_checkpoint(self.net.state_dict(),
-                                       self.weights_file)
+                if writes:
+                    # SaveWeights(only_best=True): reference-format pickle
+                    save_theano_checkpoint(self.net.state_dict(),
+                                           self.weights_file)
 
             rec = {
                 "epoch": self.epoch,
@@ -435,14 +531,15 @@ class Trainer:
                 "dur": dur,
             }
             self.history.append(rec)
-            with open(self.history_file, "a") as fh:
-                fh.write(json.dumps(rec) + "\n")
-            # reference-format mirror: nolearn SaveTrainingHistory wrote a
-            # pickle of the per-epoch dict list (nets.py:156)
-            with open(self.history_file.replace("_history.jsonl",
-                                                "_history.pkl"), "wb") as fh:
-                pickle.dump(self.history, fh, protocol=2)
-            self._save_state()
+            if writes:
+                with open(self.history_file, "a") as fh:
+                    fh.write(json.dumps(rec) + "\n")
+                # reference-format mirror: nolearn SaveTrainingHistory wrote
+                # a pickle of the per-epoch dict list (nets.py:156)
+                with open(self.history_file.replace("_history.jsonl",
+                                                    "_history.pkl"), "wb") as fh:
+                    pickle.dump(self.history, fh, protocol=2)
+                self._save_state()
 
             if verbose:
                 print(f"  epoch {self.epoch:4d}  train_loss {train_loss:.5f}  "
@@ -450,10 +547,37 @@ class Trainer:
                       f"{'*' if improved else ' '}  {dur:.1f}s")
 
             # EarlyStopping(patience): stop when no improvement for `patience`
+            # (every rank reads the same reduced valid_loss, so all stop at
+            # the same epoch)
             if self.epoch >= self.best_epoch + patience:
                 if verbose:
                     print(f"  early stopping: best epoch {self.best_epoch} "
                           f"(valid_loss {self.best_valid_loss:.5f})")
                 break
 
+        return self.history
+
+    def _fit_ranks(self, index: TrainingIndex, max_epochs: int) -> list:
+        """:meth:`fit` over ``self.devices``, one spawned rank each: hand
+        the index (``.npy`` files the ranks memory-map) and this trainer's
+        state to the ranks, join them, then take rank 0's final state and
+        history."""
+        if self.options["net_verbose"]:
+            print(f"--> data-parallel fit: {len(self.devices)} ranks on "
+                  f"{[str(d) for d in self.devices]}, backend "
+                  f"{distributed.backend_for(self.devices)}")
+        with tempfile.TemporaryDirectory(prefix="subcort_ranks_") as work:
+            distributed.write_handoff(Path(work), index, {
+                "options": self.options, "spec": self.spec,
+                "weights_path": self.weights_path, "config": self._config,
+                "state": self.state(), "history": self.history,
+                "max_epochs": max_epochs})
+            distributed.launch(distributed.train_rank, self.devices, (work,))
+            results = []
+            for rank in range(len(self.devices)):
+                with open(Path(work) / f"rank{rank}.pkl", "rb") as fh:
+                    results.append(pickle.load(fh))
+        self._load_state(results[0]["state"])
+        self.history = results[0]["history"]
+        self.rank_launches = [r["launches"] for r in results]
         return self.history

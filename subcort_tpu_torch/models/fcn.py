@@ -28,6 +28,7 @@ as cuDNN and cuBLAS do for bfloat16). ``SLABS`` counts calls of
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -43,6 +44,7 @@ DILATIONS = (1, 1, 2, 2, 4)
 HEAD_CHUNK = 65536
 
 SLABS = 0
+_SLABS_LOCK = threading.Lock()  # the multi-device paths call from threads
 
 
 def dense_branch_features(branch: _Branch, slab: torch.Tensor) -> torch.Tensor:
@@ -116,7 +118,8 @@ def fcn_forward_slab(net: TriPlanarNet, slab: torch.Tensor,
     are ``round(p * 255)``, taken once after the head loop.
     """
     global SLABS
-    SLABS += 1
+    with _SLABS_LOCK:
+        SLABS += 1
     dtype = next(net.parameters()).dtype
     if norm is not None:
         scale, lo, hi = norm

@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from subcort_tpu_torch.config import exact_float32
+from subcort_tpu_torch.parallel import sync_bn
 
 Params = Dict[str, torch.Tensor]
 
@@ -98,7 +99,9 @@ DEFAULT_SPEC = TriPlanarSpec()
 class _BatchNorm(nn.Module):
     """Lasagne BatchNormLayer: the stored (mean, inv_std) at inference; in
     training the batch's statistics, kept in ``batch_stats`` for
-    :func:`update_bn_ema`."""
+    :func:`update_bn_ema`. Inside a data-parallel step of more than one
+    rank the statistics are the global batch's
+    (:class:`~subcort_tpu_torch.parallel.sync_bn.SyncBatchNorm`)."""
 
     def __init__(self, channels: int, epsilon: float, device=None):
         super().__init__()
@@ -114,7 +117,11 @@ class _BatchNorm(nn.Module):
             # the batch's mean and inv_std = rsqrt(biased variance + eps)
             # over (N, H, W) (triplanar.py:246-252); torch keeps no running
             # statistics here: update_bn_ema does
-            if x.dtype == torch.float32:
+            dp = sync_bn.active()
+            if dp is not None and dp.world > 1:
+                y, mean, inv_std = sync_bn.sync_batch_norm(
+                    x, self.gamma, self.beta, self.epsilon)
+            elif x.dtype == torch.float32:
                 # one fused pass
                 y, mean, inv_std = torch.native_batch_norm(
                     x, self.gamma, self.beta, None, None, True, 0.0,
@@ -123,9 +130,11 @@ class _BatchNorm(nn.Module):
                 # below float32, the JAX package's rounding: mean and
                 # variance rounded to x's dtype, then each op rounded to it
                 # (rsqrt taken in float32: torch's bfloat16 rsqrt on the
-                # CPU is 1 / sqrt, rounded twice)
+                # CPU is 1 / sqrt, rounded twice); float64 stays float64
                 var, mean = torch.var_mean(x, (0, 2, 3), correction=0)
-                inv_std = torch.rsqrt((var + self.epsilon).float()).to(x.dtype)
+                wide = torch.promote_types(x.dtype, torch.float32)
+                inv_std = torch.rsqrt((var + self.epsilon).to(wide)).to(
+                    x.dtype)
                 y = ((x - mean[:, None, None])
                      * (inv_std * self.gamma)[:, None, None]
                      + self.beta[:, None, None])
@@ -139,12 +148,15 @@ def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout with its mask drawn from ``generator``: a kept value
     is scaled by 1 / (1 - rate), a dropped one is 0 (triplanar.py:255-258).
-    ``F.dropout`` would draw from torch's global generator."""
+    ``F.dropout`` would draw from torch's global generator. Inside a
+    data-parallel step the mask is drawn for the global batch and this
+    rank keeps its rows, so the ranks draw what one process would."""
     if rate == 0:
         return x
     keep = 1.0 - rate
-    mask = torch.bernoulli(torch.empty(x.shape, device=x.device), keep,
-                           generator=generator)
+    shape = (sync_bn.global_rows(x.shape[0]),) + tuple(x.shape[1:])
+    mask = sync_bn.local_rows(torch.bernoulli(
+        torch.empty(shape, device=x.device), keep, generator=generator))
     return torch.where(mask.bool(), x / keep, 0.0).to(x.dtype)
 
 

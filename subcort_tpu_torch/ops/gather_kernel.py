@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from pathlib import Path
 from typing import NamedTuple
 
@@ -49,6 +50,8 @@ ALIGN = 4
 OUT_BYTES_PER_CENTER = 3 * PATCH * PATCH * 4
 
 LAUNCHES = 0
+# the multi-device patch engine launches from one thread per device
+_COUNT_LOCK = threading.Lock()
 
 
 class GatherVolume(NamedTuple):
@@ -149,8 +152,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _library_once() -> ctypes.CDLL:
     return bind(load_library("gather_triplanar", [SOURCE]))
+
+
+def _library() -> ctypes.CDLL:
+    # under the lock: threads that launch at once build and load it once
+    with _COUNT_LOCK:
+        return _library_once()
 
 
 def _check_centers(centers: torch.Tensor, cols: int,
@@ -263,5 +272,6 @@ def gather_triplanar_cuda(volume: torch.Tensor | GatherVolume,
         msg = lib.gather_triplanar_error_string(err).decode()
         raise RuntimeError(f"gather_triplanar launch failed: error {err} "
                            f"({msg})")
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return outs

@@ -160,11 +160,16 @@ def test_port_exports_what_the_jax_package_exports(package):
 @pytest.mark.parametrize("module", ["subcort_tpu_torch.cli",
                                     "subcort_tpu_torch.engine.loo",
                                     "subcort_tpu_torch.ops.connected",
-                                    "subcort_tpu_torch.utils.runtime"])
+                                    "subcort_tpu_torch.utils.runtime",
+                                    "subcort_tpu_torch.parallel.distributed",
+                                    "subcort_tpu_torch.parallel.sync_bn",
+                                    "subcort_tpu_torch.parallel.infer_sharded",
+                                    "subcort_tpu_torch.parallel.fcn_sharded"])
 def test_new_modules_alone_import_no_jax(module):
-    """Each module of the command-line slice, alone in a fresh interpreter
-    (the CLI's parser built as well), loads no ``jax`` or ``subcort_tpu``
-    module."""
+    """Each module of the command-line and multi-device slices, alone in a
+    fresh interpreter (the CLI's parser built as well), loads no ``jax`` or
+    ``subcort_tpu`` module; ``parallel.distributed`` holds the entry of
+    every rank the trainer spawns."""
     code = (f"import sys, importlib\n"
             f"m = importlib.import_module({module!r})\n"
             "getattr(m, '_build_parser', lambda: None)()\n"

@@ -1,8 +1,11 @@
 """Card-only tests of the port: its CUDA gather kernel, the engines, the
 train step (at patch 32 and at patch 40, which takes the plain gather), the
 on-device registration and connected components on the card against the
-CPU, and ``exact_float32`` under two threads doing card work; each skips
-without a CUDA device.
+CPU, ``exact_float32`` under two threads doing card work, and the
+multi-device paths on the one card (the patch engine over two entries of
+``cuda:0``; the synced step over one NCCL rank and over two gloo ranks,
+whose rank functions come from tests/test_torch_distributed.py); each
+skips without a CUDA device.
 
 This file imports no jax and uses no conftest fixture, so it runs on a
 machine that has torch and no jax:
@@ -158,6 +161,69 @@ def test_segment_volume_card_matches_cpu(cuda_device):
     (cpu_l, cpu_p), (gpu_l, gpu_p) = out["cpu"], out[str(cuda_device)]
     np.testing.assert_allclose(gpu_p, cpu_p, rtol=0, atol=1e-5)
     np.testing.assert_array_equal(gpu_l, cpu_l)
+
+
+@pytest.mark.cuda
+def test_patch_engine_over_two_entries_of_one_card(cuda_device):
+    """The patch engine over ``[cuda:0, cuda:0]`` (two host threads, one
+    card): labels and float32 probs equal to one device, and one kernel
+    launch per chunk of each part."""
+    from subcort_tpu_torch.parallel.mesh import shard_rows
+
+    image, atlas, centers = _scan()
+    params = init_params(NARROW, torch.Generator().manual_seed(0))
+    net = TriPlanarNet.from_params(params, NARROW, cuda_device)
+    kw = dict(want_probs=True, chunk=256, engine="patch",
+              probs_dtype=np.float32)
+    one_l, one_p = segment_volume(net, image, atlas, centers, **kw)
+    before = gather_kernel.LAUNCHES
+    two_l, two_p = segment_volume(net, image, atlas, centers,
+                                  devices=[cuda_device] * 2, **kw)
+    parts = shard_rows(len(centers), 2, align=256)
+    assert gather_kernel.LAUNCHES - before == sum(
+        -(-(p.stop - p.start) // 256) for p in parts) > 1
+    np.testing.assert_array_equal(two_l, one_l)
+    np.testing.assert_array_equal(two_p, one_p)
+
+
+@pytest.mark.cuda
+def test_synced_step_over_nccl_world_one_equals_the_plain_step(
+        cuda_device, tmp_path, monkeypatch):
+    """One NCCL rank: the step (gradients all-reduced over NCCL, BN plain
+    at world 1) bit-equal to the plain step, both under cuDNN's
+    deterministic algorithms (the launcher hands the rank the caller's
+    flags); the synced BN Function alone, its two-pass statistics against
+    the native kernel's, within 1e-6."""
+    from subcort_tpu_torch.parallel import distributed
+    from test_torch_distributed import B, _nccl_rank, _one_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    assert distributed.launch(_nccl_rank, [cuda_device], (str(tmp_path),),
+                              timeout=300) == "nccl"
+    got = torch.load(tmp_path / "step0.pt")
+    loss, grads, state = _one_step(slice(0, B), cuda_device, 1)
+    assert got["loss"] == loss
+    assert all(torch.equal(got["grads"][k], g) for k, g in grads.items())
+    assert all(torch.equal(got["state"][k], v) for k, v in state.items())
+    bn = torch.load(tmp_path / "bn_world1.pt")
+    for s, n in zip(bn["synced"], bn["native"]):
+        torch.testing.assert_close(s, n, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_train_step_over_two_ranks_on_one_card(cuda_device, tmp_path,
+                                               monkeypatch):
+    """Two gloo ranks on ``cuda:0`` against the one-process card step on
+    the global batch of 2B rows (augmentation and dropout on): loss,
+    gradients and BN EMA within 1e-5."""
+    from subcort_tpu_torch.parallel import distributed
+    from test_torch_distributed import B, _one_step, _step_rank, check_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    assert distributed.launch(_step_rank, [cuda_device] * 2,
+                              (str(tmp_path),), timeout=300) == "gloo"
+    check_step(tmp_path, _one_step(slice(0, 2 * B), cuda_device, 2),
+               atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -242,20 +242,19 @@ def test_unknown_registration_options_raise_before_any_work(params, option,
     {"cc_backend": "device"},
 ])
 def test_options_outside_the_slice_raise(params, option):
-    """Options outside the ported slices raise naming ROADMAP.md: only
-    data_parallel > 1 is left. compute_dtype=bfloat16 (item 3),
-    folder_pipeline=True (item 6) and cc_backend=device (item 8), ported
-    since, build an engine that runs them: a bfloat16 net, the options kept
-    as given for segment_folder and the post-process."""
+    """No option is outside the ported slices any more: each builds an
+    engine that runs it. compute_dtype=bfloat16 (item 3) a bfloat16 net;
+    folder_pipeline=True (item 6), cc_backend=device (item 8) and
+    data_parallel=2 (item 9) keep the options as given for segment_folder,
+    the post-process and the device list, which the one CPU clamps to
+    itself."""
     from subcort_tpu_torch.engine.infer import check_slice_options
 
-    if option == {"data_parallel": 2}:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            SegmentationEngine(params, _options(mode="cpu", **option))
-        return
     options = _options(mode="cpu", **option)
     check_slice_options(options)
     engine = SegmentationEngine(params, options)
+    assert engine.devices == (None if option != {"data_parallel": 2}
+                              else [torch.device("cpu")])
     if option == {"compute_dtype": "bfloat16"}:
         assert all(t.dtype == torch.bfloat16
                    for t in engine.net.state_dict().values())

@@ -541,9 +541,17 @@ def test_bfloat16_step_matches_jax(jax_params):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # data_parallel = 2 trains over two devices; the CPU is one, so it
+    # raises as the JAX package's make_mesh does, and two named devices
+    # (a device may repeat) train one epoch over two ranks
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
         Trainer(_options("dp", data_parallel=2), spec=SPEC,
                 weights_path=str(tmp_path))
+    dp = Trainer(_options("dp", max_epochs=1), spec=SPEC,
+                 weights_path=str(tmp_path), devices=[CPU, CPU])
+    assert dp.devices == [CPU, CPU]
+    hist = dp.fit(_tiny_index())
+    assert len(hist) == 1 and np.isfinite(hist[0]["train_loss"])
     # the kernel takes 32x32 windows only: another size takes the plain
     # gather on the card, as the JAX package's does (ROADMAP.md §C 6), and
     # a device with neither raises, whatever the size
