@@ -79,9 +79,10 @@ and the exit code is non-zero:
        at 10 mm) and resample_through_affine, max |difference| <= 1e-4 of
        the value range; CUDA-event ms of each device program and GB/s
        against the bytes read and written;
-   (b) quality on bench_reg.py's phantoms (64x72x60; this script's own
-       copies): FFD SSD on the same-intensity subject, FFD NMI on the
-       remapped one (spacing_mm=6, iters=(60, 10)), the 12-dof affine on
+   (b) quality on bench_reg.py's phantoms (64x72x60; bench/reg.py's
+       make_phantom, make_affine_phantom and structure_dice): FFD SSD on
+       the same-intensity subject, FFD NMI on the remapped one
+       (spacing_mm=6, iters=(60, 10)), the 12-dof affine on
        the affine phantom: structure Dice >= 0.93 and, for the FFDs, min
        det(J)/det(A) > 0.05, the identity Dice beside them; the SSD fit
        again on the card (are two runs bit-equal?) and on the CPU (Dice
@@ -162,9 +163,26 @@ and the exit code is non-zero:
        bit, both under cuDNN's deterministic algorithms;
    (d) Trainer(data_parallel = 2) raises ValueError with one card, and
        _data_parallel_devices clamps to [cuda:0] with its note;
+16. the quality and training benchmarks of subcort_tpu_torch/bench/, each
+   through its main() or run() on the card, each with the gather launch
+   count set to 0 just before it and read just after (launches >= the
+   train steps + eval batches of its fits), each JSON line holding the
+   original's keys (BENCH_KEYS):
+   (a) bench/reg.py at its defaults: every row passes its floors (Dice
+       >= 0.93, min_jac > 0.05); without tools/ the native rows print the
+       original's "skipped" line;
+   (b) bench/train.py --samples 4096 --epochs 2 (the MNI-sized 4-subject
+       stack);
+   (c) bench/trainqual.py with 2 + 1 subjects of 48x54x44, 6 epochs,
+       seed 1, the floors of tests/test_trainqual.py (Dice >= 0.85,
+       valid_accuracy >= 0.90), under cuDNN's deterministic algorithms;
+   (d) bench/robust.py at tests/test_robustqual.py's recipe (2 subjects
+       of 48x54x44, 6 epochs, seed 1; bias_field >= 0.82, combined >=
+       0.65), registering on the card, the same algorithms;
 13. printed last: one JSON line of kernel facts (with dp_* keys: the
-   two-device patch launches, launches per rank, the backends), then the
-   last line {"ok": true, "device": {...}}.
+   two-device patch launches, launches per rank, the backends; bench_*
+   keys: each benchmark's launches, steps + eval batches and seconds), then
+   the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -251,6 +269,36 @@ REG_KERNEL_PARTS = (
     ("copies and concatenations", ("copy", "cat", "Memcpy", "Memset",
                                    "fill")),
 )
+# the benchmarks (phase 16): the keys of the originals' JSON lines, copied
+# here because bench_*.py at the repo root import jax, which the card's
+# machine lacks (tests/test_torch_bench.py holds the port's benchmarks to
+# the originals' sources on the CPU); the smoke runs' sizes and floors are
+# tests/test_trainqual.py's and tests/test_robustqual.py's
+BENCH_KEYS = {
+    "reg_ffd": ["backend", "cost", "dice_floor", "first_call_seconds",
+                "identity_dice", "metric", "min_jac", "min_jac_floor",
+                "neg_fraction", "passed", "remapped_intensities", "seconds",
+                "unit", "value"],
+    "reg_affine": ["backend", "cost", "dice_floor", "first_call_seconds",
+                   "metric", "passed", "seconds", "stage", "unit", "value"],
+    "reg_skipped": ["backend", "skipped"],
+    "train": ["batch_size", "device", "epochs", "first_epoch_seconds",
+              "metric", "samples", "samples_per_sec_per_chip",
+              "total_seconds", "unit", "value", "vs_baseline"],
+    "trainqual": ["best_epoch", "device", "dice_floor", "early_stopped",
+                  "epochs_run", "metric", "n_samples", "n_train_subjects",
+                  "passed", "per_subject_dice", "train_seconds", "unit",
+                  "valid_acc_floor", "valid_accuracy", "valid_loss", "value",
+                  "vs_baseline"],
+    "robust": ["degradation", "dice_floor", "metric", "passed",
+               "pipeline_seconds", "unit", "value"],
+    "robust_summary": ["intensity_augment", "metric", "passed",
+                       "per_degradation", "unit", "value", "volume_shape"],
+}
+BENCH_TRAIN_ARGS = ["--samples", "4096", "--epochs", "2"]
+BENCH_SMALL = dict(shape=(48, 54, 44), max_epochs=6, patience=8, seed=1)
+BENCH_TRAINQUAL_FLOORS = dict(dice_floor=0.85, valid_acc_floor=0.90)
+BENCH_ROBUST_FLOORS = {"bias_field": 0.82, "combined": 0.65}
 REG_FILES = {"rT1_template.nii.gz": SHAPE, "rT1d_template.nii.gz": SHAPE,
              "transform.nii": (22, 26, 22, 1, 3),
              "MNI_sub_probabilities.nii.gz": SHAPE + (15,),
@@ -682,72 +730,6 @@ def train_phase(torch, device, image, atlas, roi) -> tuple:
     return out, index
 
 
-def make_phantom(atlas_dir, shape=(64, 72, 60), seed=0, amp=3.0):
-    """bench_reg.py::make_phantom on the port's make_synthetic_atlas: the
-    template, a subject = the template sampled through a known smooth warp
-    (~``amp``-voxel sinusoidal field), the subject with remapped
-    intensities, the atlas and the structure masks in subject space."""
-    from scipy import ndimage
-
-    from subcort_tpu_torch.registration import make_synthetic_atlas
-
-    template, atlas = make_synthetic_atlas(atlas_dir, shape=shape, seed=seed)
-    X, Y, Z = shape
-    gx, gy, gz = np.meshgrid(np.arange(X), np.arange(Y), np.arange(Z),
-                             indexing="ij")
-    dx = amp * np.sin(np.pi * gx / X) * np.cos(np.pi * gy / Y)
-    dy = amp * np.sin(np.pi * gy / Y) * np.cos(np.pi * gz / Z)
-    dz = 0.5 * amp * np.sin(np.pi * gz / Z)
-    coords = np.stack([gx + dx, gy + dy, gz + dz], 0)
-    subject = ndimage.map_coordinates(template, coords,
-                                      order=1).astype(np.float32)
-    gt_masks = np.stack(
-        [ndimage.map_coordinates(atlas[..., s], coords, order=1) > 0.5
-         for s in range(14)], -1)
-    fmax = subject.max()
-    subject_remap = ((fmax - subject) ** 2 / fmax).astype(np.float32)
-    return template, subject, subject_remap, atlas, gt_masks
-
-
-def make_affine_phantom(atlas_dir, shape=(64, 72, 60), seed=0):
-    """bench_reg.py::make_affine_phantom: the template, a subject = the
-    template under a known 12-dof misalignment (rotation + anisotropic
-    scale + translation), the atlas and the subject-space masks."""
-    from scipy import ndimage
-
-    from subcort_tpu_torch.registration import make_synthetic_atlas
-
-    template, atlas = make_synthetic_atlas(atlas_dir, shape=shape, seed=seed)
-    rz = np.deg2rad(7.0)
-    c, s = np.cos(rz), np.sin(rz)
-    M = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]]) @ np.diag(
-        [1.06, 0.94, 1.02])
-    center = np.asarray(shape) / 2.0
-    A = np.eye(4)
-    A[:3, :3] = M
-    A[:3, 3] = center - M @ center + np.array([2.5, -1.5, 1.0])
-    Ainv = np.linalg.inv(A)
-    subject = ndimage.affine_transform(template, Ainv[:3, :3],
-                                       offset=Ainv[:3, 3],
-                                       order=1).astype(np.float32)
-    gt_masks = np.stack(
-        [ndimage.affine_transform(atlas[..., s], Ainv[:3, :3],
-                                  offset=Ainv[:3, 3], order=1) > 0.5
-         for s in range(14)], -1)
-    return template, subject, atlas, gt_masks
-
-
-def masks_dice(warped, gt_masks) -> float:
-    """Mean Dice of the 14 warped structure channels (> 0.5) against the
-    subject-space masks (bench_reg.py::structure_dice)."""
-    dices = []
-    for s in range(14):
-        p, g = warped[..., s] > 0.5, gt_masks[..., s]
-        denom = int(p.sum()) + int(g.sum())
-        dices.append(2.0 * int((p & g).sum()) / denom if denom else 0.0)
-    return float(np.mean(dices))
-
-
 def dice(a, b) -> float:
     return 2.0 * int((a & b).sum()) / max(int(a.sum()) + int(b.sum()), 1)
 
@@ -761,6 +743,9 @@ def registration_phase(torch, device, image, atlas, roi, params, spec,
 
     from subcort_tpu_torch import (NiftiImage, Options, SegmentationEngine,
                                    build_training_index, load_nii, save_nii)
+    from subcort_tpu_torch.bench.reg import (make_affine_phantom,
+                                             make_phantom, masks_dice,
+                                             structure_dice)
     from subcort_tpu_torch.config import exact_float32
     from subcort_tpu_torch.models import fcn
     from subcort_tpu_torch.ops import gather_kernel
@@ -839,13 +824,12 @@ def registration_phase(torch, device, image, atlas, roi, params, spec,
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_reg_"))
     env = os.environ.get("SUBCORT_ATLAS_DIR")
     try:
-        # (b) quality on bench_reg.py's phantoms
-        template, subject, subject_remap, p_atlas, gt_masks = make_phantom(
-            str(root / "phantom_atlases"))
+        # (b) quality on bench_reg.py's phantoms (bench/reg.py's copies)
+        template, subject, subject_remap, p_atlas, gt_masks = make_phantom()
         nc6 = _grid_counts(template.shape, 6.0)
-        identity = masks_dice(resample_through_cpp(
-            p_atlas, eye, CppGrid(np.zeros(nc6 + (3,), np.float32), 6.0, eye),
-            template.shape, eye, device=device), gt_masks)
+        identity = structure_dice(
+            CppGrid(np.zeros(nc6 + (3,), np.float32), 6.0, eye), p_atlas,
+            gt_masks, device)
         phantoms = {}
 
         def ffd(ref, cost, dev):
@@ -856,8 +840,7 @@ def registration_phase(torch, device, image, atlas, roi, params, spec,
                                            device=dev)
             seconds = time.perf_counter() - t0
             stats = jacobian_stats(g, ref.shape, dev)
-            d = masks_dice(resample_through_cpp(
-                p_atlas, eye, g, ref.shape, eye, device=dev), gt_masks)
+            d = structure_dice(g, p_atlas, gt_masks, dev)
             return g, losses, d, stats, seconds
 
         for cost, ref in (("ssd", subject), ("nmi", subject_remap)):
@@ -911,8 +894,7 @@ def registration_phase(torch, device, image, atlas, roi, params, spec,
         print(f"profile of a 5-iteration FFD fit: {len(names)} distinct ops "
               "and kernels, none of them index_put / indexing_backward")
 
-        a_template, a_subject, a_atlas, a_masks = make_affine_phantom(
-            str(root / "phantom_atlases"))
+        a_template, a_subject, a_atlas, a_masks = make_affine_phantom()
         register_affine_torch(a_subject, a_template, cost="ssd",
                               device=device)
         torch.cuda.synchronize()
@@ -1782,6 +1764,115 @@ def dp_phase(torch, device, image, atlas, roi, params, spec, cands,
     return out
 
 
+def bench_phase(torch, kind: str) -> dict:
+    """Phase 16: the four benchmarks of ``subcort_tpu_torch/bench/`` through
+    their ``main`` / ``run`` on the card (see the module docstring)."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    from subcort_tpu_torch.bench import reg, robust, train, trainqual
+    from subcort_tpu_torch.engine.train import (Trainer,
+                                                train_split_stratified)
+    from subcort_tpu_torch.ops import gather_kernel
+
+    out = {}
+    t_phase = time.perf_counter()
+    real_fit = Trainer.fit
+    fits = []
+
+    def fit_spy(self, index, max_epochs=None):
+        history = real_fit(self, index, max_epochs)
+        fits.append((index.labels, self.options["train_split"],
+                     self.options["batch_size"], len(history)))
+        return history
+
+    def drive(name: str, fn) -> list:
+        """One benchmark with the gather count at 0 just before it: its JSON
+        lines; records its launches, the train steps + eval batches its
+        fits took, and its seconds."""
+        fits.clear()
+        buf = io.StringIO()
+        try:
+            with mock.patch.object(Trainer, "fit", fit_spy), \
+                    contextlib.redirect_stdout(buf):
+                gather_kernel.LAUNCHES = 0
+                t0 = time.perf_counter()
+                fn()
+                seconds = time.perf_counter() - t0
+                launches = gather_kernel.LAUNCHES
+        finally:
+            print(buf.getvalue(), end="")
+        need = 0
+        for labels, split, batch, epochs in fits:
+            t_idx, v_idx = train_split_stratified(labels, split)
+            need += epochs * (len(t_idx) // batch
+                              + -(-len(v_idx) // max(batch, 2048)))
+        check(launches >= need, f"bench {name}: gather launches {launches} "
+              f">= train steps + eval batches {need}")
+        print(f"bench {name}: {seconds:.3f} s, {launches} gather launches "
+              f"({need} train steps + eval batches in {len(fits)} fit(s))")
+        out.update({f"bench_{name}_launches": launches,
+                    f"bench_{name}_steps_and_evals": need,
+                    f"bench_{name}_s": seconds})
+        return json_lines(buf.getvalue())
+
+    def keys_are(rec: dict, which: str) -> None:
+        check(sorted(rec) == BENCH_KEYS[which],
+              f"{which} line has the original's keys: {sorted(rec)}")
+
+    # (a) bench/reg.py at its defaults (no tools/ here: the native rows
+    # print the original's "skipped" line)
+    for rec in drive("reg", lambda: reg.main(["--mode", "cuda0"])):
+        which = ("reg_skipped" if "skipped" in rec else
+                 "reg_affine" if rec.get("stage") == "affine" else "reg_ffd")
+        keys_are(rec, which)
+        check(which == "reg_skipped" or rec["passed"],
+              f"bench reg row passed its floors: {rec}")
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark
+    # deterministic cuDNN algorithms, so the floors of (c) and (d) see the
+    # same weights in every run
+    cudnn.deterministic, cudnn.benchmark = True, False
+    env = os.environ.get("SUBCORT_ATLAS_DIR")
+    try:
+        # (b) bench/train.py, MNI-sized stack, 4,096 samples, 2 epochs
+        lines = drive("train", lambda: train.main(BENCH_TRAIN_ARGS
+                                                  + ["--mode", "cuda0"]))
+        check(len(lines) == 1, "bench train printed one JSON line")
+        keys_are(lines[0], "train")
+        check(lines[0]["device"] == kind and lines[0]["epochs"] == 2,
+              f"bench train on the card, 2 epochs: {lines[0]}")
+        # (c) bench/trainqual.py at tests/test_trainqual.py's size and
+        # floors, on bench/trainqual.py's own cohort
+        lines = drive("trainqual", lambda: trainqual.run(
+            n_train=2, n_holdout=1, mode="cuda0", **BENCH_SMALL,
+            **BENCH_TRAINQUAL_FLOORS))
+        check(len(lines) == 1 and lines[0]["passed"],
+              f"bench trainqual passed its floors: {lines}")
+        keys_are(lines[0], "trainqual")
+        # (d) bench/robust.py at tests/test_robustqual.py's recipe: the
+        # default pipeline, registering on the card (reg_backend = torch)
+        lines = drive("robust", lambda: robust.run(
+            n_train=2, kinds=list(BENCH_ROBUST_FLOORS),
+            sample_floors=BENCH_ROBUST_FLOORS, mode="cuda0", **BENCH_SMALL))
+        check(len(lines) == 3 and lines[-1]["passed"],
+              f"bench robust passed its floors: {lines}")
+        for rec in lines[:-1]:
+            keys_are(rec, "robust")
+        keys_are(lines[-1], "robust_summary")
+        out["bench_robust_dice"] = lines[-1]["per_degradation"]
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+        if env is None:
+            os.environ.pop("SUBCORT_ATLAS_DIR", None)
+        else:
+            os.environ["SUBCORT_ATLAS_DIR"] = env
+    out["bench_phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 16: {out['bench_phase_s']:.3f} s")
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2124,6 +2215,9 @@ def main() -> None:
     dp = dp_phase(torch, device, image, atlas, roi, params, spec, cands,
                   train_index)
 
+    # 16. the quality and training benchmarks
+    bench = bench_phase(torch, kind)
+
     # 13. results
     print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all")
     print(json.dumps({"kernels": [{
@@ -2146,6 +2240,7 @@ def main() -> None:
         **reg,
         **cli,
         **dp,
+        **bench,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

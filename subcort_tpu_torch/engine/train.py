@@ -561,7 +561,9 @@ class Trainer:
         """:meth:`fit` over ``self.devices``, one spawned rank each: hand
         the index (``.npy`` files the ranks memory-map) and this trainer's
         state to the ranks, join them, then take rank 0's final state and
-        history."""
+        history. The join returns as soon as the last rank exits; it waits
+        no longer than ``distributed.FIT_TIMEOUT_S`` (None, the default:
+        as long as the fit runs)."""
         if self.options["net_verbose"]:
             print(f"--> data-parallel fit: {len(self.devices)} ranks on "
                   f"{[str(d) for d in self.devices]}, backend "
@@ -572,7 +574,8 @@ class Trainer:
                 "weights_path": self.weights_path, "config": self._config,
                 "state": self.state(), "history": self.history,
                 "max_epochs": max_epochs})
-            distributed.launch(distributed.train_rank, self.devices, (work,))
+            distributed.launch(distributed.train_rank, self.devices, (work,),
+                               timeout=distributed.FIT_TIMEOUT_S)
             results = []
             for rank in range(len(self.devices)):
                 with open(Path(work) / f"rank{rank}.pkl", "rb") as fh:

@@ -26,6 +26,7 @@ import datetime
 import os
 import pickle
 import socket
+import sys
 import time
 from multiprocessing.connection import wait
 from pathlib import Path
@@ -41,6 +42,13 @@ from subcort_tpu_torch.parallel import sync_bn
 COLLECTIVE_TIMEOUT_S = 600
 # how long the other ranks get to exit after one has failed
 FAILED_GRACE_S = 5
+# the longest one wait of the join sleeps before it reads the exit codes
+# again
+POLL_S = 0.5
+# how long a data-parallel Trainer.fit waits for its ranks; None waits
+# as long as the fit runs (a rank that hangs in a collective still fails
+# after COLLECTIVE_TIMEOUT_S)
+FIT_TIMEOUT_S: Optional[float] = None
 
 
 def _timeout() -> datetime.timedelta:
@@ -153,6 +161,47 @@ def _rank_entry(target, rank: int, world: int, init_method: str,
             target(rank, world, dev, *args)
     finally:
         dist.destroy_process_group()
+    # the rank's work is done and in its files: exit now, not after the
+    # interpreter's teardown of torch (0.7 s on an idle CPU, seconds under
+    # load), which the launcher's join would wait out
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def join(procs: Sequence, timeout: Optional[float] = None) -> None:
+    """Wait until every process of ``procs`` (``multiprocessing``
+    processes) has exited with code 0. Once one exits non-zero, the others
+    get ``FAILED_GRACE_S`` to exit on their own and :class:`RuntimeError`
+    names every process that failed, as a rank: its place in ``procs``; a
+    ``timeout`` (seconds) that runs out raises too. The caller stops what
+    is still running.
+
+    The processes still running are taken from the same reading of the
+    exit codes that found one running, and every wait is bounded by
+    ``POLL_S``: ``wait`` on an empty list sleeps out its whole timeout
+    (forever without one), which a list read again after the last process
+    exited would be. So this returns within ``POLL_S`` of the last
+    exit."""
+    deadline = None if timeout is None else time.monotonic() + timeout
+    while True:
+        codes = [p.exitcode for p in procs]
+        live = [p.sentinel for p, c in zip(procs, codes) if c is None]
+        if any(c not in (None, 0) for c in codes):
+            grace = time.monotonic() + FAILED_GRACE_S
+            while live and time.monotonic() < grace:
+                wait(live, timeout=POLL_S)
+                live = [p.sentinel for p in procs if p.exitcode is None]
+            failed = {r: p.exitcode for r, p in enumerate(procs)
+                      if p.exitcode not in (None, 0)}
+            raise RuntimeError(f"ranks {sorted(failed)} of {len(procs)} "
+                               f"exited with codes {list(failed.values())}")
+        if not live:
+            return
+        left = None if deadline is None else deadline - time.monotonic()
+        if left is not None and left <= 0:
+            raise RuntimeError(f"ranks still running after {timeout} s")
+        wait(live, timeout=POLL_S if left is None else min(left, POLL_S))
 
 
 def launch(target, devices: Sequence[torch.device], args: tuple = (),
@@ -162,11 +211,11 @@ def launch(target, devices: Sequence[torch.device], args: tuple = (),
     group over :func:`backend_for`'s backend, which it returns.
     ``target`` must be importable by name.
     Every rank gets the caller's cuDNN flags and an equal share of its
-    threads. The join waits on every rank: once one exits non-zero, the
-    others get ``FAILED_GRACE_S`` to exit on their own (a peer's failure
-    usually breaks their collectives), are then terminated, and
-    :class:`RuntimeError` names every rank that failed; a ``timeout``
-    (seconds) that runs out raises too."""
+    threads. The ranks are joined by :func:`join`: once one exits
+    non-zero the others get ``FAILED_GRACE_S`` to exit on their own (a
+    peer's failure usually breaks their collectives), are then
+    terminated, and :class:`RuntimeError` names every rank that failed; a
+    ``timeout`` (seconds) that runs out raises too."""
     import torch.multiprocessing as mp
 
     world = len(devices)
@@ -181,25 +230,9 @@ def launch(target, devices: Sequence[torch.device], args: tuple = (),
         args)) for rank, dev in enumerate(devices)]
     for p in procs:
         p.start()
-    deadline = None if timeout is None else time.monotonic() + timeout
     try:
-        while True:
-            codes = [p.exitcode for p in procs]
-            if any(c not in (None, 0) for c in codes):
-                wait([p.sentinel for p in procs if p.exitcode is None],
-                     timeout=FAILED_GRACE_S)
-                failed = {r: p.exitcode for r, p in enumerate(procs)
-                          if p.exitcode not in (None, 0)}
-                raise RuntimeError(f"ranks {sorted(failed)} of {world} "
-                                   f"({backend}) exited with codes "
-                                   f"{list(failed.values())}")
-            if all(c == 0 for c in codes):
-                return backend
-            left = None if deadline is None else deadline - time.monotonic()
-            if left is not None and left <= 0:
-                raise RuntimeError(f"ranks still running after {timeout} s")
-            wait([p.sentinel for p in procs if p.exitcode is None],
-                 timeout=left)
+        join(procs, timeout)
+        return backend
     finally:
         for p in procs:
             if p.exitcode is None:

@@ -199,7 +199,7 @@ def test_synced_step_over_nccl_world_one_equals_the_plain_step(
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     assert distributed.launch(_nccl_rank, [cuda_device], (str(tmp_path),),
-                              timeout=300) == "nccl"
+                              timeout=150) == "nccl"
     got = torch.load(tmp_path / "step0.pt")
     loss, grads, state = _one_step(slice(0, B), cuda_device, 1)
     assert got["loss"] == loss
@@ -221,7 +221,7 @@ def test_train_step_over_two_ranks_on_one_card(cuda_device, tmp_path,
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     assert distributed.launch(_step_rank, [cuda_device] * 2,
-                              (str(tmp_path),), timeout=300) == "gloo"
+                              (str(tmp_path),), timeout=150) == "gloo"
     check_step(tmp_path, _one_step(slice(0, 2 * B), cuda_device, 2),
                atol=1e-5)
 

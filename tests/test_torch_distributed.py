@@ -64,6 +64,77 @@ def _launch(target, devices, *args):
     return distributed.launch(target, devices, args, timeout=WAIT_S)
 
 
+@pytest.fixture(autouse=True)
+def _bounded_fit(monkeypatch):
+    """A data-parallel ``Trainer.fit`` waits for its ranks no longer than
+    the launcher's timeout here, whatever a rank does."""
+    monkeypatch.setattr(distributed, "FIT_TIMEOUT_S", WAIT_S)
+
+
+# ------------------------------------------------------------ the join
+JOINS, PROCS = 20, 3
+JOIN_SLACK_S = 2.0  # a join returns this soon after the last exit
+
+
+def _stamp_and_exit(t_exit, path):
+    """Spin until ``t_exit``, so that the processes of one join exit
+    together, then write the time as the last act."""
+    while time.time() < t_exit:
+        pass
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT)
+    os.write(fd, repr(time.time()).encode())
+    os.close(fd)
+
+
+@pytest.mark.filterwarnings("ignore:.*fork")
+def test_join_returns_within_a_poll_of_the_last_exit(tmp_path):
+    """``distributed.join`` on processes that exit within microseconds of
+    each other: it returns within ``JOIN_SLACK_S`` of the last one's final
+    stamp in every join. (A join that rebuilt its list of running
+    processes after the last one exited waited on an empty list, which
+    sleeps out the whole timeout.) The processes are forked, so that they
+    start at once and can exit together, and import nothing; each join has
+    a timeout of 10 s and stops what still runs, so a miss fails, not
+    hangs."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("fork")
+    late = []
+    for j in range(JOINS):
+        t_exit = time.time() + 0.05
+        paths = [tmp_path / f"stamp{j}_{i}" for i in range(PROCS)]
+        procs = [ctx.Process(target=_stamp_and_exit, args=(t_exit, str(p)),
+                             daemon=True) for p in paths]
+        for p in procs:
+            p.start()
+        try:
+            distributed.join(procs, timeout=10.0)
+            returned = time.time()
+        finally:
+            for p in procs:
+                if p.exitcode is None:
+                    p.terminate()
+                p.join()
+        last = max(float(p.read_text()) for p in paths)
+        late.append(returned - last)
+    assert max(late) < JOIN_SLACK_S, [f"{s:.3f}" for s in late]
+
+
+def _stamp_rank(rank, world, device, workdir):
+    sync_bn.all_reduce_sum(torch.ones(1))  # both ranks reach the end
+    (Path(workdir) / f"rank{rank}").write_text(repr(time.time()))
+
+
+def test_launch_returns_soon_after_its_ranks_exit(tmp_path):
+    """One real ``launch`` over [cpu, cpu]: it returns within
+    ``JOIN_SLACK_S`` of the later rank's last act of its target (the rank
+    then leaves the group and its interpreter exits)."""
+    assert _launch(_stamp_rank, [CPU, CPU], str(tmp_path)) == "gloo"
+    returned = time.time()
+    last = max(float((tmp_path / f"rank{r}").read_text()) for r in range(2))
+    assert returned - last < JOIN_SLACK_S, returned - last
+
+
 # ------------------------------------------------------------ synced BN
 C, HW, EPS = 8, 6, 1e-4
 

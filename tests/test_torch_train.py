@@ -540,10 +540,14 @@ def test_bfloat16_step_matches_jax(jax_params):
                                    rtol=0, atol=atol, err_msg=k)
 
 
-def test_trainer_refuses_what_is_not_ported(tmp_path):
+def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     # data_parallel = 2 trains over two devices; the CPU is one, so it
     # raises as the JAX package's make_mesh does, and two named devices
-    # (a device may repeat) train one epoch over two ranks
+    # (a device may repeat) train one epoch over two ranks, which the fit
+    # waits for no longer than 120 s
+    from subcort_tpu_torch.parallel import distributed
+
+    monkeypatch.setattr(distributed, "FIT_TIMEOUT_S", 120)
     with pytest.raises(ValueError, match="requested 2 devices, have 1"):
         Trainer(_options("dp", data_parallel=2), spec=SPEC,
                 weights_path=str(tmp_path))
