@@ -179,9 +179,23 @@ and the exit code is non-zero:
    (d) bench/robust.py at tests/test_robustqual.py's recipe (2 subjects
        of 48x54x44, 6 epochs, seed 1; bias_field >= 0.82, combined >=
        0.65), registering on the card, the same algorithms;
+17. the headline benchmark, subcort_tpu_torch/bench/scan.py (the port of
+   bench.py), through its run() on the phase-4 scan and the generator that
+   built it, at the model's full width: phase 4's seeded weights written
+   as a reference-format pickle (save_theano_checkpoint) and read back for
+   the net, 3 interleaved repeats, the oracle canary on 32 voxels from
+   that pickle; the gather launch count set to 0 just before it. Checks:
+   one JSON line with the original's keys (BENCH_KEYS["scan"]),
+   fcn_vs_patch_agreement >= 0.9999, oracle_agreement >= 31/32,
+   bf16_fast_agreement at least the JAX package's own on the same scan
+   and weights (BF16_FAST_REFERENCE) less 0.002, gather launches equal to
+   the patch engine's chunks (25), the candidate count and FLOP count of
+   the MNI scan, peak_flops_assumed from bench/scan.py's table
+   (989.4e12 on the H100 SXM);
 13. printed last: one JSON line of kernel facts (with dp_* keys: the
    two-device patch launches, launches per rank, the backends; bench_*
-   keys: each benchmark's launches, steps + eval batches and seconds), then
+   keys: each benchmark's launches, steps + eval batches and seconds;
+   bench_scan_* keys: phase 17's launches, chunks, seconds and line), then
    the last line {"ok": true, "device": {...}}.
 """
 
@@ -294,11 +308,31 @@ BENCH_KEYS = {
                "pipeline_seconds", "unit", "value"],
     "robust_summary": ["intensity_augment", "metric", "passed",
                        "per_degradation", "unit", "value", "volume_shape"],
+    "scan": ["bf16_device_seconds", "bf16_fast_agreement",
+             "bf16_fast_median", "bf16_fast_seconds", "candidate_voxels",
+             "checkpoint", "device", "device_seconds", "est_flops_per_scan",
+             "est_mfu_bf16", "est_mfu_f32_vs_bf16_peak",
+             "fcn_vs_patch_agreement", "host_wire_seconds",
+             "includes_post_process", "median_seconds", "metric",
+             "n_repeats", "oracle_agreement", "peak_flops_assumed", "unit",
+             "value", "volume_shape", "voxels_per_sec_per_chip",
+             "vs_baseline", "with_prob_maps_median",
+             "with_prob_maps_seconds"],
 }
 BENCH_TRAIN_ARGS = ["--samples", "4096", "--epochs", "2"]
 BENCH_SMALL = dict(shape=(48, 54, 44), max_epochs=6, patience=8, seed=1)
 BENCH_TRAINQUAL_FLOORS = dict(dice_floor=0.85, valid_acc_floor=0.90)
 BENCH_ROBUST_FLOORS = {"bias_field": 0.82, "combined": 0.65}
+# the headline benchmark (phase 17): its repeats and oracle sample; the
+# MNI scan's candidates and FLOPs of one slab call (one head row per
+# candidate); the JAX package's own fast-profile agreement (bfloat16 with
+# uint8 priors vs float32 with uint16) on this scan with phase 4's seeded
+# weights, every candidate, on the CPU (scripts/jax_scan_fast_agreement.py)
+SCAN_REPEATS = 3
+SCAN_ORACLE_N = 32
+SCAN_CANDIDATES = 204_403
+SCAN_FLOPS = 780_233_270_760
+BF16_FAST_REFERENCE = 0.9952055498206973
 REG_FILES = {"rT1_template.nii.gz": SHAPE, "rT1d_template.nii.gz": SHAPE,
              "transform.nii": (22, 26, 22, 1, 3),
              "MNI_sub_probabilities.nii.gz": SHAPE + (15,),
@@ -310,24 +344,6 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
 
 
-def make_scan(rng):
-    """MNI-dimension synthetic int16 T1, 15-channel prior atlas and
-    subcortical ROI (the same construction as bench.py::make_scan)."""
-    image = np.zeros(SHAPE, np.int16)
-    x, y, z = np.ogrid[:SHAPE[0], :SHAPE[1], :SHAPE[2]]
-    brain = (((x - 90) / 80.0) ** 2 + ((y - 108) / 95.0) ** 2
-             + ((z - 90) / 78.0) ** 2) < 1.0
-    image[brain] = (rng.random(int(brain.sum())) * 800 + 100).astype(np.int16)
-    atlas = np.zeros(SHAPE + (15,), np.float32)
-    atlas[..., 14] = 1.0
-    roi = (((x - 90) / 28.0) ** 2 + ((y - 108) / 32.0) ** 2
-           + ((z - 90) / 26.0) ** 2) < 1.0
-    pri = rng.random((int(roi.sum()), 15)).astype(np.float32)
-    pri /= pri.sum(1, keepdims=True)
-    atlas[roi] = pri
-    return image, atlas, roi
-
-
 def make_training_subject(seed: int):
     """An MNI-sized training subject: make_scan's T1 (its own seed) with
     a 15-class GT, classes 1..14 the ROI ellipsoid cut into 7 angular
@@ -335,6 +351,8 @@ def make_training_subject(seed: int):
     boundary background 2 voxels wide around it; each structure brightens
     the T1 by 20 per class, and the prior puts 0.6 of its mass on the
     voxel's structure, so both inputs carry the labels."""
+    from subcort_tpu_torch.bench.scan import make_scan
+
     rng = np.random.default_rng(seed)
     image, atlas, roi = make_scan(rng)
     x, y, z = np.ogrid[:SHAPE[0], :SHAPE[1], :SHAPE[2]]
@@ -1151,6 +1169,7 @@ def cli_phase(torch, device, smi, image, atlas, roi, labels, params,
                                    load_nii, load_options, save_nii,
                                    save_theano_checkpoint,
                                    train_split_stratified)
+    from subcort_tpu_torch.bench.scan import make_scan
     from subcort_tpu_torch.engine import candidate_centers
     from subcort_tpu_torch.engine.infer import DEFAULT_CHUNK
     from subcort_tpu_torch.engine.postprocess import post_process_segmentation
@@ -1873,6 +1892,85 @@ def bench_phase(torch, kind: str) -> dict:
     return out
 
 
+def scan_phase(torch, device, kind, image, atlas, roi, rng, params,
+               spec) -> dict:
+    """Phase 17: the headline benchmark ``subcort_tpu_torch/bench/scan.py``
+    through its ``run`` on the card (see the module docstring). ``rng`` is
+    the generator that built the scan, so the oracle draws the original's
+    voxels."""
+    import contextlib
+    import io
+
+    from subcort_tpu_torch.bench import scan
+    from subcort_tpu_torch.engine.infer import DEFAULT_CHUNK
+    from subcort_tpu_torch.models import (TriPlanarNet, load_theano_checkpoint,
+                                          save_theano_checkpoint)
+    from subcort_tpu_torch.ops import gather_kernel
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scan_") as tmp:
+        ckpt = os.path.join(tmp, "seeded_init.pkl")
+        save_theano_checkpoint(params, ckpt)
+        net = TriPlanarNet.from_params(load_theano_checkpoint(ckpt), spec,
+                                       device)
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                gather_kernel.LAUNCHES = 0
+                t0 = time.perf_counter()
+                rec = scan.run(net, image, atlas, roi, rng, device=device,
+                               repeats=SCAN_REPEATS, oracle_n=SCAN_ORACLE_N,
+                               checkpoint=ckpt)
+                seconds = time.perf_counter() - t0
+                launches = gather_kernel.LAUNCHES
+        finally:
+            print(buf.getvalue(), end="")
+    check(json_lines(buf.getvalue()) == [rec],
+          "bench scan printed its one JSON line")
+    check(sorted(rec) == BENCH_KEYS["scan"],
+          f"scan line has the original's keys: {sorted(rec)}")
+    chunks = math.ceil(rec["candidate_voxels"] / DEFAULT_CHUNK)
+    check(rec["candidate_voxels"] == SCAN_CANDIDATES,
+          f"bench scan candidates {rec['candidate_voxels']} == "
+          f"{SCAN_CANDIDATES}")
+    check(rec["est_flops_per_scan"] == SCAN_FLOPS,
+          f"bench scan FLOPs {rec['est_flops_per_scan']} == {SCAN_FLOPS}")
+    check(launches == chunks, f"bench scan: gather launches {launches} == "
+          f"the patch canary's chunks {chunks}")
+    check(rec["fcn_vs_patch_agreement"] >= MIN_DENSE_VS_PATCH,
+          f"bench scan fcn_vs_patch_agreement "
+          f"{rec['fcn_vs_patch_agreement']} >= {MIN_DENSE_VS_PATCH}")
+    floor = (SCAN_ORACLE_N - 1) / SCAN_ORACLE_N
+    check(rec["oracle_agreement"] is not None
+          and rec["oracle_agreement"] >= floor,
+          f"bench scan oracle_agreement {rec['oracle_agreement']} >= {floor}")
+    floor = BF16_FAST_REFERENCE - BF16_SLACK
+    check(rec["bf16_fast_agreement"] >= floor,
+          f"bench scan bf16_fast_agreement {rec['bf16_fast_agreement']} >= "
+          f"{floor} (JAX package {BF16_FAST_REFERENCE})")
+    check(rec["device"] == kind and rec["checkpoint"] == "seeded_init",
+          f"bench scan on the card, from the pickle: {rec['device']}, "
+          f"{rec['checkpoint']}")
+    peak = (989.4e12 if kind == "NVIDIA H100 80GB HBM3"
+            else scan.peak_flops(kind))
+    check(rec["peak_flops_assumed"] == peak,
+          f"bench scan peak_flops_assumed {rec['peak_flops_assumed']} == "
+          f"{peak} for {kind!r}")
+    for key in ("value", "device_seconds", "bf16_device_seconds",
+                "with_prob_maps_seconds", "bf16_fast_seconds"):
+        check(math.isfinite(rec[key]) and rec[key] > 0,
+              f"bench scan {key} {rec[key]} > 0")
+    print(f"bench scan: {seconds:.3f} s, {launches} gather launches "
+          f"({chunks} chunks), per scan {rec['value']} s (median "
+          f"{rec['median_seconds']}), device {rec['device_seconds']} s, "
+          f"bfloat16 device {rec['bf16_device_seconds']} s")
+    out = {"bench_scan_launches": launches, "bench_scan_chunks": chunks,
+           "bench_scan_s": seconds, "bench_scan_line": rec,
+           "bench_scan_phase_s": time.perf_counter() - t_phase}
+    print(f"phase 17: {out['bench_scan_phase_s']:.3f} s")
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1903,6 +2001,7 @@ def main() -> None:
     from subcort_tpu_torch.ops.patches import (gather_triplanar,
                                                gather_triplanar_subjects,
                                                pad_volume)
+    from subcort_tpu_torch.bench.scan import make_scan
     from subcort_tpu_torch.utils.build import build_library
 
     # 1. device facts
@@ -1954,7 +2053,9 @@ def main() -> None:
         print(f"kernel == plain, {mode} mode: {got[0].shape[0]} centers, "
               "bit-equal")
 
-    image, atlas, roi = make_scan(np.random.default_rng(0))
+    # the generator goes on to phase 17, which draws its oracle sample
+    scan_rng = np.random.default_rng(0)
+    image, atlas, roi = make_scan(scan_rng)
     insitu = torch.from_numpy(candidate_centers(
         image, Options(), roi.astype(np.uint8))[:N_TIMED]).to(device)
     scan = _normalized_padded(image, device)
@@ -2217,6 +2318,10 @@ def main() -> None:
 
     # 16. the quality and training benchmarks
     bench = bench_phase(torch, kind)
+
+    # 17. the headline benchmark
+    bench.update(scan_phase(torch, device, kind, image, atlas, roi, scan_rng,
+                            params, spec))
 
     # 13. results
     print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all")

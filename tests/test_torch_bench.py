@@ -1,7 +1,8 @@
-"""PyTorch port: the quality and training benchmarks
-(``subcort_tpu_torch/bench/``) held to the originals at the repo root
-(``bench_reg.py``, ``bench_train.py``, ``bench_trainqual.py``,
-``bench_robust.py``), on the CPU at small sizes.
+"""PyTorch port: the benchmarks (``subcort_tpu_torch/bench/``) held to the
+originals at the repo root (``bench_reg.py``, ``bench_train.py``,
+``bench_trainqual.py``, ``bench_robust.py``, and ``bench.py`` for
+``bench/scan.py``, whose runs tests/test_torch_bench_scan.py holds), on the
+CPU at small sizes.
 
 Tolerances: the phantoms and the synthetic index are array-equal (the
 same numpy and scipy calls on the same seeds); the JSON keys and the
@@ -20,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from subcort_tpu_torch.bench import reg, robust, train, trainqual
+from subcort_tpu_torch.bench import reg, robust, scan, train, trainqual
 from subcort_tpu_torch.config import Options
 
 torch.set_num_threads(1)
@@ -29,6 +30,7 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))  # the originals live at the repo root
 
 import bench_reg  # noqa: E402
+import chip_smoke  # noqa: E402
 import bench_robust  # noqa: E402
 import bench_trainqual  # noqa: E402
 
@@ -73,15 +75,33 @@ def _dumped_keys(path: Path) -> list:
     return sorted(found)
 
 
-@pytest.mark.parametrize("name", ["reg", "train", "trainqual", "robust"])
+BENCHMARKS = ["reg", "train", "trainqual", "robust", "scan"]
+
+
+def _original(name: str) -> Path:
+    """The original of ``bench/<name>.py`` at the repo root."""
+    return REPO / ("bench.py" if name == "scan" else f"bench_{name}.py")
+
+
+@pytest.mark.parametrize("name", BENCHMARKS)
 def test_json_lines_carry_the_original_keys(name):
     """Every JSON line a benchmark prints has the keys of the original's
     line (both sources, parsed)."""
     port = REPO / "subcort_tpu_torch" / "bench" / f"{name}.py"
-    original = REPO / f"bench_{name}.py"
+    original = _original(name)
     want = _dumped_keys(original)
     assert want, f"no JSON line found in {original.name}"
     assert _dumped_keys(port) == want
+
+
+@pytest.mark.parametrize("name", BENCHMARKS)
+def test_chip_smoke_key_copies_equal_the_originals(name):
+    """chip_smoke.py's BENCH_KEYS (copies, since the originals import jax)
+    hold the keys of each line the original prints: ``<name>`` and
+    ``<name>_<line>`` entries."""
+    copies = sorted(keys for which, keys in chip_smoke.BENCH_KEYS.items()
+                    if which == name or which.startswith(name + "_"))
+    assert copies == _dumped_keys(_original(name))
 
 
 def test_floors_and_constants_equal_the_originals():
@@ -236,7 +256,7 @@ def test_robust_run_registers_on_the_cpu_and_scores(tmp_path, monkeypatch,
 
 
 # ------------------------------------------------------------ the refusals
-@pytest.mark.parametrize("name", ["reg", "train", "trainqual", "robust"])
+@pytest.mark.parametrize("name", BENCHMARKS)
 def test_each_benchmark_asks_for_the_card_by_default(name):
     """Without ``--mode cpu`` a benchmark runs on the card, and on a box
     without one it raises from ``select_device`` before any work: nothing
@@ -244,6 +264,6 @@ def test_each_benchmark_asks_for_the_card_by_default(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
     module = {"reg": reg, "train": train, "trainqual": trainqual,
-              "robust": robust}[name]
+              "robust": robust, "scan": scan}[name]
     with pytest.raises(RuntimeError, match="CUDA device"):
         module.main([])

@@ -4,8 +4,9 @@ on-device registration and connected components on the card against the
 CPU, ``exact_float32`` under two threads doing card work, and the
 multi-device paths on the one card (the patch engine over two entries of
 ``cuda:0``; the synced step over one NCCL rank and over two gloo ranks,
-whose rank functions come from tests/test_torch_distributed.py); each
-skips without a CUDA device.
+whose rank functions come from tests/test_torch_distributed.py), and the
+headline benchmark's ``run`` on the card against the CPU (its phantom from
+tests/test_torch_bench_scan.py); each skips without a CUDA device.
 
 This file imports no jax and uses no conftest fixture, so it runs on a
 machine that has torch and no jax:
@@ -678,3 +679,57 @@ def test_register_masks_on_the_card(cuda_device, tmp_path, monkeypatch):
     register_masks(scan, atlas_dir=atlas_dir, device=cuda_device)
     assert driver.REPORT is None
     assert torch.cuda.max_memory_allocated(cuda_device) >= peak
+
+
+@pytest.mark.cuda
+def test_bench_scan_run_on_the_card_matches_the_cpu(cuda_device,
+                                                     monkeypatch):
+    """``bench/scan.py``'s ``run`` on tests/test_torch_bench_scan.py's
+    phantom with a narrow seeded net, on the CPU and on the card, one
+    repeat: the exact, probability-map and patch canary labels equal, the
+    fast profile's (bfloat16) at >= 0.999; the gather kernel launched once
+    per chunk of the canary during the card's run and never during the
+    CPU's; the card's line carries its name and the table's peak."""
+    from scipy import ndimage
+
+    from subcort_tpu_torch.bench import scan
+    from test_torch_bench_scan import NARROW as NARROW_KW
+    from test_torch_bench_scan import _config, make_phantom
+
+    image, atlas, roi = make_phantom(np.random.default_rng(0))
+    params = init_params(NARROW, torch.Generator().manual_seed(0))
+    real = scan.segment_volume
+    labels, recs, launches = {}, {}, {}
+    assert NARROW == TriPlanarSpec(**NARROW_KW)
+    for dev in (torch.device("cpu"), cuda_device):
+        seen = labels[dev.type] = {}
+
+        def spy(*args, seen=seen, **kw):
+            out = real(*args, **kw)
+            seen[_config(kw)] = out[0]
+            return out
+
+        monkeypatch.setattr(scan, "segment_volume", spy)
+        net = TriPlanarNet.from_params(params, NARROW, dev)
+        before = gather_kernel.LAUNCHES
+        recs[dev.type] = scan.run(net, image, atlas, roi,
+                                  np.random.default_rng(5), device=dev,
+                                  repeats=1, oracle_n=8)
+        launches[dev.type] = gather_kernel.LAUNCHES - before
+    cpu, card = labels["cpu"], labels["cuda"]
+    for config in ("exact", "probs", "patch"):
+        np.testing.assert_array_equal(card[config], cpu[config])
+    n = recs["cuda"]["candidate_voxels"]
+    sel = np.nonzero(ndimage.binary_dilation(roi, iterations=10))
+    assert len(sel[0]) == n
+    assert float(np.mean(card["fast"][sel] == cpu["fast"][sel])) >= 0.999
+    assert launches == {"cpu": 0, "cuda": -(-n // 8192)}
+    assert recs["cuda"]["fcn_vs_patch_agreement"] == \
+        recs["cpu"]["fcn_vs_patch_agreement"]
+    name = torch.cuda.get_device_name(cuda_device)
+    rec = recs["cuda"]
+    assert rec["device"] == name
+    assert rec["peak_flops_assumed"] == scan.PEAK_FLOPS.get(name)
+    if name == "NVIDIA H100 80GB HBM3":
+        assert rec["peak_flops_assumed"] == 989.4e12
+        assert rec["est_mfu_bf16"] > 0 and rec["est_mfu_f32_vs_bf16_peak"] > 0
