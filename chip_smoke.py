@@ -99,10 +99,15 @@ and the exit code is non-zero:
        min det(J)/det(A) > 0, the warped template's NMI against the
        subject rose, the warped priors' ROI Dice against the phase-4 ROI
        >= REG_MNI_DICE (the identity Dice beside it), a segmentation with
-       non-zero labels, a second register_masks call under 1 s. Prints
-       seconds per stage, ms per optimiser iteration at each level (CUDA
-       events beside the host's enqueue ms) and peak device memory per
-       stage;
+       non-zero labels, a second register_masks call under 1 s, every
+       level replayed one captured iteration (LEVEL_LOG). Then the same
+       subject again through register_masks with every level a plain loop
+       (``_eager=True``): both calls' transform.nii controls and transf.txt
+       equal. Prints both calls' seconds per stage and peak device memory
+       per stage, and each level's ms per optimiser iteration (CUDA events
+       beside the host's enqueue ms; the warm-up's apart), capture ms and
+       wall ms; then one iteration of the quarter-resolution affine level
+       and of both FFD levels under torch.profiler;
    (d) the priors-miss path of training: build_training_index on one
        phantom subject without tmp/, reg_backend = torch;
 14. the command line on the card, ``subcort_tpu_torch.cli.main`` called in
@@ -752,6 +757,19 @@ def dice(a, b) -> float:
     return 2.0 * int((a & b).sum()) / max(int(a.sum()) + int(b.sum()), 1)
 
 
+def print_levels(levels) -> None:
+    """One line per optimiser level of ``torch_backend.LEVEL_LOG``."""
+    for lv in levels:
+        print(f"  level {lv['stage']} {lv.get('dof', '')} {lv['shape']}: "
+              f"{lv['iters']} iterations, replayed {lv['replayed']} "
+              f"(warm-up {lv['warmup_iters']}, capture {lv['capture_ms']} "
+              f"ms); {lv['device_ms_per_iter']} ms per iteration by CUDA "
+              f"events, host enqueue {lv['host_enqueue_ms_per_iter']} ms "
+              f"(warm-up: {lv['warmup_device_ms_per_iter']} and "
+              f"{lv['warmup_enqueue_ms_per_iter']} ms); the level "
+              f"{lv['level_ms']} ms; {lv['reserved_bytes']} bytes reserved")
+
+
 def registration_phase(torch, device, image, atlas, roi, params, spec,
                        atlas_dir: Path) -> dict:
     """Phase 12: on-device registration (see the module docstring). The
@@ -1010,58 +1028,96 @@ def registration_phase(torch, device, image, atlas, roi, params, spec,
               f"took {again:.3f} s < 1 s")
         reg_s = sum(v for k, v in report.items() if k.endswith("_s"))
         print(f"MNI-sized scan without tmp/: segment_folder {seconds:.3f} s; "
-              f"register_masks {reg_s:.3f} s, by stage (io_s: NIfTI reads "
-              f"and writes only) {json.dumps(report)}; second call "
-              f"{again:.4f} s")
-        for lv in levels:
-            print(f"  level {lv['stage']} {lv.get('dof', '')} {lv['shape']}: "
-                  f"{lv['iters']} iterations, "
-                  f"{lv['device_ms_per_iter']} ms per iteration by CUDA "
-                  f"events, host enqueue {lv['host_enqueue_ms_per_iter']} ms")
+              f"register_masks (graphed levels) {reg_s:.3f} s, by stage "
+              f"(io_s: NIfTI reads and writes only) {json.dumps(report)}; "
+              f"second call {again:.4f} s")
+        print_levels(levels)
+        check(len(levels) == 6 and all(lv["replayed"] for lv in levels),
+              "every affine and FFD level replayed one captured iteration: "
+              f"{[(lv['stage'], lv['replayed']) for lv in levels]}")
+
+        # the same subject registered again with every level a plain loop
+        eager_scan = root / "eager" / "mni01" / "T1.nii.gz"
+        eager_scan.parent.mkdir(parents=True)
+        shutil.copy(scan, eager_scan)
+        torch_backend.LEVEL_LOG, driver.REPORT = [], {}
+        register_masks(str(eager_scan), backend="torch", similarity="nmi",
+                       device=device, _eager=True)
+        levels_eager, torch_backend.LEVEL_LOG = torch_backend.LEVEL_LOG, None
+        report_eager, driver.REPORT = driver.REPORT, None
+        eager_s = sum(v for k, v in report_eager.items() if k.endswith("_s"))
+        print(f"the same subject, every level a plain loop: register_masks "
+              f"{eager_s:.3f} s, by stage {json.dumps(report_eager)}")
+        print_levels(levels_eager)
+        check(len(levels_eager) == 6
+              and not any(lv["replayed"] for lv in levels_eager),
+              "the eager call ran every level as a plain loop")
+        eager_tmp = eager_scan.parent / "tmp"
+        controls = (fitted.disp,
+                    load_cpp_grid(str(eager_tmp / "transform.nii"), eye).disp)
+        affines = (np.loadtxt(str(tmp / "transf.txt")),
+                   np.loadtxt(str(eager_tmp / "transf.txt")))
+        graph_vs_eager = {
+            "controls_max_abs_diff": float(np.abs(np.subtract(*controls)).max()),
+            "affine_max_abs_diff": float(np.abs(np.subtract(*affines)).max())}
+        print(f"graphed vs eager register_masks: {json.dumps(graph_vs_eager)}")
+        check(np.array_equal(*controls) and np.array_equal(*affines),
+              "graphed and eager levels give the same transform.nii controls "
+              f"and transf.txt: {graph_vs_eager}")
         print(f"MNI-sized registration: NMI with the subject "
               f"{nmi_before:.6f} unregistered, {nmi_affine:.6f} affine, "
               f"{nmi_after:.6f} deformable; ROI Dice {d:.6f} (identity "
               f"{d_identity:.6f}); min det(J)/det(A) {stats['min_jac']:.4f}, "
               f"neg_fraction {stats['neg_fraction']}; {labelled} labelled "
               "voxels")
-        # the device's own work in one FFD iteration at both levels: Adam
-        # steps from the fitted state under torch.profiler
-        from subcort_tpu_torch.registration import torch_ffd
-        from subcort_tpu_torch.registration.torch_backend import downsample2
+        # the device's own work in one iteration of the quarter-resolution
+        # affine level and of both FFD levels: the levels' own iteration
+        # (adam_level), eager, under torch.profiler
+        from subcort_tpu_torch.registration import torch_affine, torch_ffd
+        from subcort_tpu_torch.registration.torch_backend import (adam_level,
+                                                                  downsample2)
 
         profiles = {}
         ref_full = torch.from_numpy(t1f).to(device)
         flo_full = torch.from_numpy(template).to(device)
         ref_half, half_affine = downsample2(ref_full, eye)
         flo_half, _ = downsample2(flo_full, eye)
+        ref_quarter, quarter_affine = downsample2(ref_half, half_affine)
+        flo_quarter, _ = downsample2(flo_half, half_affine)
         d0 = torch.from_numpy(fitted.disp).to(device)
+        center = torch.from_numpy(
+            torch_affine._moments(t1f, eye)[0].astype(np.float32)).to(device)
         for name, ref, flo, aff, spacing, offset in (
+                ("affine quarter level", ref_quarter, flo_quarter,
+                 quarter_affine, None, None),
                 ("ffd half level", ref_half, flo_half, half_affine, 5.0, 0.25),
                 ("ffd full level", ref_full, flo_full, eye, 10.0, 0.0)):
             aff_t = torch.from_numpy(aff.astype(np.float32)).to(device)
             inv_t = torch.from_numpy(
                 np.linalg.inv(aff).astype(np.float32)).to(device)
             with exact_float32():
-                loss_fn = torch_ffd._level_loss(
-                    d0, ref, flo, aff_t, inv_t, (spacing,) * 3, 5e-4,
-                    cost="nmi", jw=1.0, vox_offset=offset)
-                ctrl = d0.clone().requires_grad_(True)
-                opt = torch.optim.Adam([ctrl], lr=0.01)
-
-                def step():
-                    opt.zero_grad(set_to_none=True)
-                    loss_fn(ctrl).backward()
-                    opt.step()
-
+                if spacing is None:
+                    loss_fn = torch_affine._level_loss(
+                        center, ref, flo, aff_t, inv_t, cost="nmi")
+                    x0 = torch.zeros(12, device=device)
+                else:
+                    loss_fn = torch_ffd._level_loss(
+                        d0, ref, flo, aff_t, inv_t, (spacing,) * 3, 5e-4,
+                        cost="nmi", jw=1.0, vox_offset=offset)
+                    x0 = d0
+                # room in the loss vector for the warm-up and the 3 steps
+                step, _, _ = adam_level(loss_fn, x0, 16, 0.01)
                 profiles[name] = profile_steps(torch, step, steps=3,
                                                parts=REG_KERNEL_PARTS)
             print(f"  {name} {list(ref.shape)}, one iteration under the "
                   f"profiler: {json.dumps(profiles[name])}")
-            del loss_fn, ctrl, opt
-        del ref_full, flo_full, ref_half, flo_half
+            del loss_fn, step
+        del ref_full, flo_full, ref_half, flo_half, ref_quarter, flo_quarter
         out.update(reg_segment_folder_s=seconds, reg_stages=report,
                    reg_level_profiles=profiles,
-                   reg_levels=levels, reg_mni_dice=d,
+                   reg_levels=levels, reg_levels_eager=levels_eager,
+                   reg_stages_eager=report_eager,
+                   reg_graph_vs_eager=graph_vs_eager, reg_mni_dice=d,
                    reg_mni_identity_dice=d_identity,
                    reg_mni_min_jac=stats["min_jac"],
                    reg_mni_nmi=[nmi_before, nmi_affine, nmi_after],

@@ -166,7 +166,8 @@ def register_masks(input_scan: str, atlas_dir: str | None = None,
                    tools_dir: str | None = None, per_channel: bool = False,
                    bugcompat_mask_channels: bool = True,
                    dilate_iters: int = 5, backend: str = "torch",
-                   similarity: str = "nmi", device=None) -> float:
+                   similarity: str = "nmi", device=None,
+                   _eager: bool = False) -> float:
     """Register the MNI atlas into subject space; returns elapsed seconds
     (the reference returns seconds too and the caller prints minutes).
 
@@ -185,6 +186,10 @@ def register_masks(input_scan: str, atlas_dir: str | None = None,
     arbitrary scanner T1 is exactly the cross-protocol intensity situation
     NMI exists for (SSD mis-registers intensity-remapped pairs). SSD
     remains opt-in for same-protocol pairs.
+
+    On the card every optimiser level runs as one captured iteration
+    replayed (torch_backend.run_level); ``_eager`` runs them as plain
+    loops, for comparisons of the two.
     """
     check_registration(backend, similarity)
     on_device = backend == "torch"
@@ -211,7 +216,7 @@ def register_masks(input_scan: str, atlas_dir: str | None = None,
                     np.asarray(t1_img.data, np.float32),
                     np.asarray(tmpl_img.data, np.float32),
                     ref_affine=t1_img.affine, flo_affine=tmpl_img.affine,
-                    cost=similarity, device=device)
+                    cost=similarity, device=device, _eager=_eager)
                 np.savetxt(transf, A, fmt="%.10g")  # transf.txt contract
                 warped = resample_through_affine(
                     np.asarray(tmpl_img.data, np.float32), tmpl_img.affine,
@@ -236,7 +241,8 @@ def register_masks(input_scan: str, atlas_dir: str | None = None,
                     np.asarray(t1_img.data, np.float32),
                     np.asarray(tmpl_img.data, np.float32),
                     ref_affine=t1_img.affine, flo_affine=tmpl_img.affine,
-                    init_affine=A, cost=similarity, device=device)
+                    init_affine=A, cost=similarity, device=device,
+                    _eager=_eager)
                 stage.io(save_cpp_grid, grid, cpp)
                 warped = resample_through_cpp(
                     np.asarray(tmpl_img.data, np.float32), tmpl_img.affine,

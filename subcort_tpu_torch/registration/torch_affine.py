@@ -32,8 +32,8 @@ import torch
 
 from subcort_tpu_torch.config import exact_float32, resolve_device
 from subcort_tpu_torch.registration.torch_backend import (
-    LevelTimer, _apply_affine, _f32, _ref_world_coords, _to_numpy,
-    _trilinear, downsample2, linear_schedule)
+    _apply_affine, _f32, _ref_world_coords, _to_numpy, _trilinear,
+    adam_level, downsample2, run_level)
 from subcort_tpu_torch.registration.torch_ffd import (_nmi,
                                                       _ref_hist_weights,
                                                       nmi_normalisation)
@@ -47,9 +47,14 @@ _PSCALE = np.array([10.0, 10.0, 10.0,      # translation (mm)
                     0.1, 0.1, 0.1], np.float32)  # shear
 
 
-def _affine_from_params(pn: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
-    """Normalized params (12,) -> (4,4) world affine (flo = A @ ref)."""
-    p = pn * _f32(_PSCALE, pn.device)
+def _affine_from_params(pn: torch.Tensor, center: torch.Tensor,
+                        pscale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Normalized params (12,) -> (4,4) world affine (flo = A @ ref).
+    ``pscale`` is :data:`_PSCALE` on the device, where an optimiser level
+    has hoisted it out of its iteration."""
+    if pscale is None:
+        pscale = _f32(_PSCALE, pn.device)
+    p = pn * pscale
     t, r, ls, h = p[0:3], p[3:6], p[6:9], p[9:12]
     c, s = torch.cos(r), torch.sin(r)
     one, zero = torch.ones_like(c[0]), torch.zeros_like(c[0])
@@ -72,6 +77,7 @@ def _level_loss(center, ref, flo, ref_affine, flo_inv, cost="ssd", nbins=32):
     """The loss of one affine level as a function of the normalized
     parameters; what does not depend on them is computed here, once."""
     ref_world = _ref_world_coords(tuple(ref.shape), ref_affine, ref.device)
+    pscale = _f32(_PSCALE, ref.device)
     if cost == "nmi":
         ref01, flo_lo, fscale = nmi_normalisation(ref, flo)
         ref_weights = _ref_hist_weights(ref01, nbins)
@@ -79,7 +85,7 @@ def _level_loss(center, ref, flo, ref_affine, flo_inv, cost="ssd", nbins=32):
         ones = torch.ones_like(flo)
 
     def loss_fn(q):
-        A = _affine_from_params(q, center)
+        A = _affine_from_params(q, center, pscale)
         fw = torch.einsum("ij,xyzj->xyzi", A[:3, :3], ref_world) + A[:3, 3]
         fv = _apply_affine(flo_inv, fw)
         warped = _trilinear(flo, fv)
@@ -103,32 +109,23 @@ def _level_loss(center, ref, flo, ref_affine, flo_inv, cost="ssd", nbins=32):
 
 def _optimize_level(pn, center, ref, flo, ref_affine, flo_inv,
                     iters: int, lr: float, cost: str = "ssd",
-                    nbins: int = 32, dof: int = 12):
+                    nbins: int = 32, dof: int = 12, _eager: bool = False):
     """One pyramid level of Adam descent; tensors on one device. ``dof``=6
     freezes scale/shear (rigid phase: the same rigid-then-affine schedule as
     block-matching aladin, which keeps the full fit from sliding into a
-    shear+scale mixture that mimics rotation); 12 = full affine. Returns
-    (parameters, per-iteration losses), the losses a device tensor."""
+    shear+scale mixture that mimics rotation); 12 = full affine. On the
+    card the level is one captured iteration replayed
+    (torch_backend.run_level; ``_eager`` runs it as a plain loop, for the
+    comparisons). Returns (parameters, per-iteration losses), both device
+    tensors."""
     mask = _f32(np.concatenate(
         [np.ones(6), np.full(6, 1.0 if dof == 12 else 0.0)]), ref.device)
     loss_fn = _level_loss(center, ref, flo, ref_affine, flo_inv, cost, nbins)
-    q = pn.detach().clone().requires_grad_(True)
-    opt = torch.optim.Adam([q], lr=lr)
-    losses = []
-    timer = LevelTimer(ref.device)
-    for i in range(iters):
-        opt.param_groups[0]["lr"] = linear_schedule(lr, i, iters)
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(q)
-        loss.backward()
-        q.grad.mul_(mask)  # masked parameters keep zero Adam moments
-        opt.step()
-        losses.append(loss.detach())
-    timer.stop(iters, stage="affine", cost=cost, dof=dof,
-               shape=list(ref.shape))
-    losses = torch.stack(losses) if losses else torch.zeros(
-        0, device=ref.device)
-    return q.detach(), losses
+    # masked parameters keep zero Adam moments
+    step, q, losses = adam_level(loss_fn, pn, iters, lr, grad_mask=mask)
+    run_level(step, iters, ref.device, eager=_eager, stage="affine",
+              cost=cost, dof=dof, shape=list(ref.shape))
+    return q, losses
 
 
 def _moments(vol: np.ndarray, affine: np.ndarray):
@@ -165,7 +162,8 @@ def register_affine_torch(ref: np.ndarray, flo: np.ndarray,
                           flo_affine: Optional[np.ndarray] = None,
                           cost: str = "ssd", nbins: int = 32,
                           iters: Tuple[int, int, int] = (150, 60, 15),
-                          lr: float = 0.05, device=None) -> np.ndarray:
+                          lr: float = 0.05, device=None,
+                          _eager: bool = False) -> np.ndarray:
     """Fit flo_world = A @ ref_world by multi-resolution gradient descent.
 
     Returns the (4,4) world affine in the transf.txt contract (float64),
@@ -207,7 +205,8 @@ def register_affine_torch(ref: np.ndarray, flo: np.ndarray,
             pn_t, _ = _optimize_level(
                 pn_t, center, _f32(r, device), _f32(f, device),
                 _f32(ra, device), _f32(np.linalg.inv(fa), device),
-                int(it), float(level_lr), cost=cost, nbins=nbins, dof=dof)
+                int(it), float(level_lr), cost=cost, nbins=nbins, dof=dof,
+                _eager=_eager)
         with torch.no_grad():
             A = _affine_from_params(pn_t, center)
     return np.asarray(_to_numpy(A), np.float64)

@@ -5,7 +5,9 @@ A PyTorch twin of ``tools/reg_resample``: trilinear pull-resampling through
 either a world affine or a SUBCORT_CPP B-spline control grid (see
 native/src/geometry.hpp for the transform contracts). It warps the 15 prior
 channels on the device in one pass, and is the differentiable resampler of
-the on-device affine and FFD registration (torch_affine.py, torch_ffd.py).
+the on-device affine and FFD registration (torch_affine.py, torch_ffd.py),
+whose optimiser levels it also runs (:func:`adam_level`, :func:`run_level`:
+one level one device program, a CUDA graph of one iteration replayed).
 
 Everything here is plain tensor code (``torch.einsum``, indexing): the JAX
 package wrote no Pallas kernel for it either. The coordinates feed the
@@ -20,6 +22,7 @@ Every public function takes a ``device``; ``None`` means
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import NamedTuple, Optional, Tuple
 
@@ -30,11 +33,21 @@ from subcort_tpu_torch.config import exact_float32, resolve_device
 from subcort_tpu_torch.io import load_nii
 
 # When a list, every optimiser level (torch_affine / torch_ffd) appends one
-# dict: stage, level shape, iterations, device ms per iteration by CUDA
-# events (None on the CPU) and the host's ms per iteration to enqueue them.
-# Costs one event pair and one synchronize per level; None (the default)
-# records nothing.
+# dict (run_level): stage, level shape, iterations, whether it replayed a
+# CUDA graph, the capture's ms, device ms per iteration by CUDA events (None
+# on the CPU) and the host's ms per iteration to enqueue them. Costs a few
+# events and one synchronize per level; None (the default) records nothing.
 LEVEL_LOG: Optional[list] = None
+
+# optax.adam's defaults, the JAX package's optimiser
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+# eager iterations of a level on its capture stream before one is captured:
+# the first creates cuBLAS's workspace for that stream and grows the
+# caching allocator, which a capture must not have to do
+WARMUP_ITERS = 2
+
+_THREAD = threading.local()
 
 
 class CppGrid(NamedTuple):
@@ -100,43 +113,185 @@ def load_cpp_grid(path: str, ref_affine: np.ndarray) -> CppGrid:
     return CppGrid(disp, sp, ra)
 
 
-def linear_schedule(lr: float, step: int, iters: int) -> float:
+def linear_schedule(lr: float, step, iters: int):
     """Learning rate of optimiser step ``step`` (from 0): a linear decay
     from ``lr`` to ``0.1 * lr`` over ``iters`` steps, the JAX package's
-    ``optax.linear_schedule(lr, 0.1 * lr, iters)``."""
+    ``optax.linear_schedule(lr, 0.1 * lr, iters)``. ``step`` is an int, or
+    a float32 tensor on the device (the level's own count, as optax's)."""
     t = max(int(iters), 1)
+    if isinstance(step, torch.Tensor):
+        return lr * (1.0 - 0.9 * torch.clamp(step, max=t) / t)
     return lr * (1.0 - 0.9 * min(step, t) / t)
 
 
+def adam_level(loss_fn, x0: torch.Tensor, iters: int, lr: float,
+               grad_mask: Optional[torch.Tensor] = None):
+    """The state and the iteration of one optimiser level: ``iters`` steps
+    of ``optax.adam(linear_schedule(lr, 0.1 * lr, iters))`` on
+    ``loss_fn(x)`` from ``x0``, the JAX package's scan body with optax's
+    arithmetic (float32 bias correction from the step count).
+
+    The parameters, Adam's moments, the step count and an ``(iters,)``
+    loss vector written at the count all live on ``x0``'s device, and
+    ``step()`` updates them in place: it takes no host input and reads
+    nothing back, so one call of it can be captured in a CUDA graph and
+    replayed (:func:`run_level`). ``grad_mask`` multiplies the gradient
+    (the affine's rigid phase). Returns ``(step, x, losses)``."""
+    x = x0.detach().clone()
+    mu, nu = torch.zeros_like(x), torch.zeros_like(x)
+    count = torch.zeros((), dtype=torch.int64, device=x.device)
+    losses = torch.zeros(iters, dtype=torch.float32, device=x.device)
+
+    def step():
+        xg = x.detach().requires_grad_(True)
+        loss = loss_fn(xg)
+        (g,) = torch.autograd.grad(loss, xg)
+        with torch.no_grad():
+            if grad_mask is not None:
+                g = g * grad_mask
+            c = count.to(torch.float32)
+            mu.copy_((1.0 - ADAM_B1) * g + ADAM_B1 * mu)
+            nu.copy_((1.0 - ADAM_B2) * (g * g) + ADAM_B2 * nu)
+            mu_hat = mu / (1.0 - ADAM_B1 ** (c + 1.0))
+            nu_hat = nu / (1.0 - ADAM_B2 ** (c + 1.0))
+            rate = linear_schedule(lr, c, iters)
+            x.add_(-rate * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)))
+            losses.index_copy_(0, count.view(1), loss.detach().view(1))
+            count.add_(1)
+
+    return step, x, losses
+
+
 class LevelTimer:
-    """Times one optimiser level for :data:`LEVEL_LOG` (a no-op while that
-    is None): CUDA events around the level's iterations and the host's time
-    to enqueue them."""
+    """Times one span of an optimiser level for :data:`LEVEL_LOG` (a no-op
+    while that is None): CUDA events on the current stream around the
+    span, and the host's time to enqueue it."""
 
     def __init__(self, device: torch.device):
         self.on = LEVEL_LOG is not None
+        self.events = None
         if not self.on:
             return
-        self.events = None
         if device.type == "cuda":
-            self.events = (torch.cuda.Event(enable_timing=True),
-                           torch.cuda.Event(enable_timing=True))
+            self.events = [torch.cuda.Event(enable_timing=True)]
             self.events[0].record()
         self.t0 = time.perf_counter()
 
-    def stop(self, iters: int, **facts) -> None:
+    def stop(self) -> None:
         if not self.on:
             return
-        host_ms = (time.perf_counter() - self.t0) * 1e3
+        self.host_ms = (time.perf_counter() - self.t0) * 1e3
+        if self.events is not None:
+            self.events.append(torch.cuda.Event(enable_timing=True))
+            self.events[1].record()
+
+    def per_iter(self, n: int) -> Tuple[Optional[float], float]:
+        """(device ms, host enqueue ms) per each of the span's ``n``
+        iterations; waits for the span's end on the device."""
         device_ms = None
         if self.events is not None:
-            self.events[1].record()
             self.events[1].synchronize()
-            device_ms = self.events[0].elapsed_time(self.events[1])
-        n = max(iters, 1)
-        LEVEL_LOG.append(dict(
-            facts, iters=iters, host_enqueue_ms_per_iter=host_ms / n,
-            device_ms_per_iter=None if device_ms is None else device_ms / n))
+            device_ms = self.events[0].elapsed_time(self.events[1]) / max(n, 1)
+        return device_ms, self.host_ms / max(n, 1)
+
+
+def _capture_stream(device: torch.device):
+    """This thread's stream for capturing levels on ``device``: one per
+    thread and card, so the caching allocator reuses a level's freed
+    blocks in the next (it reuses them only on their own stream)."""
+    streams = _THREAD.__dict__.setdefault("capture_streams", {})
+    if device.index not in streams:
+        streams[device.index] = torch.cuda.Stream(device)
+    return streams[device.index]
+
+
+def _timed(fn, n: int, device: torch.device) -> LevelTimer:
+    """``n`` calls of ``fn``; their :class:`LevelTimer`."""
+    timer = LevelTimer(device)
+    for _ in range(n):
+        fn()
+    timer.stop()
+    return timer
+
+
+def run_level(step, iters: int, device: torch.device, eager: bool = False,
+              **facts) -> None:
+    """Run one optimiser level: ``iters`` calls of ``step``
+    (:func:`adam_level`'s), with TF32 off.
+
+    On the CPU, and on the card when ``eager`` (tests and the smoke
+    compare the two), a plain loop. Otherwise the counterpart of the JAX
+    package's compiled ``lax.scan``: on this thread's capture stream,
+    ordered after the caller's stream by an event and the caller after it
+    again at the end (no device-wide synchronize: the pipelined folder
+    sweep registers on its loader thread while the main thread segments),
+    :data:`WARMUP_ITERS` eager iterations, then one iteration captured in
+    a CUDA graph (thread-local capture mode) and replayed for the rest, so
+    the level still runs exactly ``iters`` iterations. A level with no
+    iteration left to replay finishes eagerly. The graph goes when the
+    level ends, and its memory pool back to the caching allocator. A
+    failed capture or replay raises; nothing falls back to the loop.
+
+    With :data:`LEVEL_LOG` a list, appends ``facts`` with: ``iters``;
+    ``replayed``; ``warmup_iters``; ``capture_ms`` (host ms to capture
+    and instantiate the graph); ``device_ms_per_iter`` and
+    ``host_enqueue_ms_per_iter`` over the replayed iterations (all of them
+    in a plain loop); the same for the warm-up; ``level_ms``, the host's
+    wall time of the whole level to its end on the device; and, on the
+    card, ``reserved_bytes`` (the caching allocator's, graph pools
+    included, at the level's end)."""
+    t_level = time.perf_counter()
+    with exact_float32():
+        if device.type == "cuda" and not eager:
+            warmup, capture_ms, rest = _run_graphed(step, iters, device)
+        else:
+            warmup, capture_ms, rest = None, None, _timed(step, iters, device)
+    if LEVEL_LOG is None:
+        return
+    n_warm = 0 if warmup is None else WARMUP_ITERS
+    entry = dict(facts, iters=iters, replayed=warmup is not None,
+                 warmup_iters=n_warm, capture_ms=capture_ms,
+                 warmup_device_ms_per_iter=None,
+                 warmup_enqueue_ms_per_iter=None)
+    entry["device_ms_per_iter"], entry["host_enqueue_ms_per_iter"] = \
+        rest.per_iter(iters - n_warm)
+    if warmup is not None:
+        entry["warmup_device_ms_per_iter"], \
+            entry["warmup_enqueue_ms_per_iter"] = warmup.per_iter(n_warm)
+    if device.type == "cuda":
+        entry["reserved_bytes"] = torch.cuda.memory_reserved(device)
+    entry["level_ms"] = (time.perf_counter() - t_level) * 1e3
+    LEVEL_LOG.append(entry)
+
+
+def _run_graphed(step, iters: int, device: torch.device):
+    """:func:`run_level` on the card. Returns the warm-up's timer, the
+    capture's host ms and the replays' timer; (None, None, the loop's
+    timer) for a level too short to replay."""
+    caller = torch.cuda.current_stream(device)
+    side = _capture_stream(device)
+    side.wait_stream(caller)
+    graph = warmup = capture_ms = None
+    with torch.cuda.stream(side):
+        if iters <= WARMUP_ITERS:
+            rest = _timed(step, iters, device)
+        else:
+            warmup = _timed(step, WARMUP_ITERS, device)
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                step()
+            finally:
+                graph.capture_end()
+            capture_ms = (time.perf_counter() - t0) * 1e3
+            rest = _timed(graph.replay, iters - WARMUP_ITERS, device)
+    caller.wait_stream(side)
+    if graph is not None:
+        # the replays end before the graph's memory goes back
+        side.synchronize()
+        graph.reset()
+    return warmup, capture_ms, rest
 
 
 def _bspline_weights(t: torch.Tensor) -> torch.Tensor:

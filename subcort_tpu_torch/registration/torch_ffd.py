@@ -26,10 +26,12 @@ to their affine initialization (so pure affine motion is unpenalized),
 mirroring the C++ implementation for cross-backend comparability.
 
 Where the JAX package compiles a level into one ``lax.scan`` program, the
-port's optimiser loop runs on the host: what does not change over a level
-(the B-spline matrices, the reference's Parzen weights, the world grid) is
-built once per level, and the per-iteration losses stay on the device until
-the level ends.
+port captures one iteration of the level in a CUDA graph and replays it
+(torch_backend.run_level; a plain loop on the CPU): what does not change
+over a level (the B-spline matrices, the reference's Parzen weights and
+with them the NMI's chunk split, the world grid) is built once per level,
+Adam's state and step count live on the device, and the per-iteration
+losses are written into a device vector that the caller reads once.
 """
 
 from __future__ import annotations
@@ -43,9 +45,9 @@ import torch
 from subcort_tpu_torch.config import exact_float32, resolve_device
 from subcort_tpu_torch.io import NiftiImage, save_nii
 from subcort_tpu_torch.registration.torch_backend import (
-    CppGrid, LevelTimer, _apply_affine, _f32, _ref_world_coords, _to_numpy,
-    _trilinear, bspline_axis_matrices, bspline_dense_disp,
-    contract_dense_disp, downsample2, linear_schedule, spacing3)
+    CppGrid, _apply_affine, _f32, _ref_world_coords, _to_numpy, _trilinear,
+    adam_level, bspline_axis_matrices, bspline_dense_disp,
+    contract_dense_disp, downsample2, run_level, spacing3)
 
 NMI_CHUNK = 1 << 17
 
@@ -209,30 +211,21 @@ def _level_loss(d_affine, ref, flo, ref_affine, flo_inv, spacing, be,
 def _optimize_level(disp, d_affine, ref, flo, ref_affine, flo_inv,
                     spacing: Tuple[float, float, float], iters: int,
                     be: float, lr: float, cost: str = "ssd", nbins: int = 32,
-                    jw: float = 0.0, vox_offset: float = 0.0):
+                    jw: float = 0.0, vox_offset: float = 0.0,
+                    _eager: bool = False):
     """One pyramid level of Adam descent on the control values; tensors on
-    one device. Returns (control values, per-iteration losses), the losses
-    a device tensor read by the caller once."""
+    one device. On the card the level is one captured iteration replayed
+    (torch_backend.run_level; ``_eager`` runs it as a plain loop, for the
+    comparisons). Returns (control values, per-iteration losses), the
+    losses a device tensor read by the caller once."""
     loss_fn = _level_loss(d_affine, ref, flo, ref_affine, flo_inv, spacing,
                           be, cost, nbins, jw, vox_offset)
-    d = disp.detach().clone().requires_grad_(True)
     # decay within the level: constant-lr Adam can oscillate/diverge once
     # near the optimum on long runs
-    opt = torch.optim.Adam([d], lr=lr)
-    losses = []
-    timer = LevelTimer(ref.device)
-    for i in range(iters):
-        opt.param_groups[0]["lr"] = linear_schedule(lr, i, iters)
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(d)
-        loss.backward()
-        opt.step()
-        losses.append(loss.detach())
-    timer.stop(iters, stage="ffd", cost=cost, shape=list(ref.shape),
-               controls=list(d.shape[:3]))
-    losses = torch.stack(losses) if losses else torch.zeros(
-        0, device=ref.device)
-    return d.detach(), losses
+    step, d, losses = adam_level(loss_fn, disp, iters, lr)
+    run_level(step, iters, ref.device, eager=_eager, stage="ffd", cost=cost,
+              shape=list(ref.shape), controls=list(disp.shape[:3]))
+    return d, losses
 
 
 def register_ffd_torch(ref: np.ndarray, flo: np.ndarray,
@@ -244,7 +237,7 @@ def register_ffd_torch(ref: np.ndarray, flo: np.ndarray,
                        be: Optional[float] = None, lr_mm: float = 0.4,
                        cost: str = "ssd", nbins: int = 32,
                        fold_penalty: float = 1.0, warn_folds: bool = True,
-                       device=None):
+                       device=None, _eager: bool = False):
     """Register flo onto ref; returns (CppGrid, per-level loss arrays), the
     grid's displacements a numpy array.
 
@@ -312,7 +305,8 @@ def register_ffd_torch(ref: np.ndarray, flo: np.ndarray,
             d_aff, d_aff, ref_c, flo_c, _f32(ref_affine_c, device),
             _f32(np.linalg.inv(flo_affine_c), device),
             tuple(s / 2.0 for s in spacing), int(iters[0]), be, lr_mm,
-            cost=cost, nbins=nbins, jw=float(fold_penalty), vox_offset=0.25)
+            cost=cost, nbins=nbins, jw=float(fold_penalty), vox_offset=0.25,
+            _eager=_eager)
         losses.append(_to_numpy(l0))
         del ref_c, flo_c
         # the fine level refines an almost-converged state: halve the step
@@ -321,7 +315,7 @@ def register_ffd_torch(ref: np.ndarray, flo: np.ndarray,
             disp, d_aff, ref_t, flo_t, _f32(ref_affine, device),
             _f32(np.linalg.inv(flo_affine), device),
             spacing, int(iters[1]), be, lr_mm / 2.0, cost=cost, nbins=nbins,
-            jw=float(fold_penalty))
+            jw=float(fold_penalty), _eager=_eager)
         losses.append(_to_numpy(l1))
 
     grid = CppGrid(disp=_to_numpy(disp), spacing=spacing,

@@ -1,7 +1,9 @@
 """Card-only tests of the port: its CUDA gather kernel, the engines, the
 train step (at patch 32 and at patch 40, which takes the plain gather), the
 on-device registration and connected components on the card against the
-CPU, ``exact_float32`` under two threads doing card work, and the
+CPU, registration levels replayed from a CUDA graph against the plain loop
+(also captured on a second thread while the main one segments),
+``exact_float32`` under two threads doing card work, and the
 multi-device paths on the one card (the patch engine over two entries of
 ``cuda:0``; the synced step over one NCCL rank and over two gloo ranks,
 whose rank functions come from tests/test_torch_distributed.py), and the
@@ -681,6 +683,113 @@ def test_register_masks_on_the_card(cuda_device, tmp_path, monkeypatch):
     assert torch.cuda.max_memory_allocated(cuda_device) >= peak
 
 
+# the level kinds of register_masks: the affine's rigid and 12-dof phases,
+# the FFD under SSD and under NMI, the fold penalty on
+LEVEL_KINDS = [("affine", "nmi", 6), ("affine", "nmi", 12),
+               ("ffd", "ssd", None), ("ffd", "nmi", None)]
+
+
+def _level(kind, cost, dof, device, iters=8):
+    """A function of ``eager`` that runs one optimiser level of ``kind`` on
+    ``device`` over _reg_pair at half resolution, from parameters a little
+    off the start, and returns (parameters, losses)."""
+    from subcort_tpu_torch.registration import torch_affine, torch_ffd
+    from subcort_tpu_torch.registration.torch_backend import downsample2
+
+    ref, flo = _reg_pair()
+    ref_c, ra = downsample2(ref, np.eye(4))
+    flo_c, fa = downsample2(flo, np.eye(4))
+    rng = np.random.default_rng(6)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    if kind == "affine":
+        center, _ = torch_affine._moments(ref, np.eye(4))
+        args = [t(a) for a in (rng.standard_normal(12) * 0.3, center, ref_c,
+                               flo_c, ra, np.linalg.inv(fa))]
+        return lambda eager: torch_affine._optimize_level(
+            *args, iters, 0.05, cost=cost, dof=dof, _eager=eager)
+    nc = torch_ffd._grid_counts(ref.shape, 6.0)
+    disp = rng.standard_normal(nc + (3,)) * 3.0
+    args = [t(a) for a in (disp, np.zeros_like(disp), ref_c, flo_c, ra,
+                           np.linalg.inv(fa))]
+    be = 0.05 if cost == "ssd" else 5e-4
+    return lambda eager: torch_ffd._optimize_level(
+        *args, (3.0, 3.0, 3.0), iters, be, 0.4, cost=cost, jw=1.0,
+        vox_offset=0.25, _eager=eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,cost,dof", LEVEL_KINDS)
+def test_graphed_level_equals_eager_level(cuda_device, monkeypatch, kind,
+                                          cost, dof):
+    """One optimiser level as a plain loop and as warm-up iterations plus
+    replays of one captured iteration: parameters and every loss equal bit
+    for bit (gathers, einsums and matmuls, no atomics), and LEVEL_LOG says
+    which of the two ran."""
+    from subcort_tpu_torch.registration import torch_backend
+
+    level = _level(kind, cost, dof, cuda_device)
+    monkeypatch.setattr(torch_backend, "LEVEL_LOG", [])
+    eager, graphed = level(True), level(False)
+    log = torch_backend.LEVEL_LOG
+    assert [e["replayed"] for e in log] == [False, True]
+    assert log[1]["warmup_iters"] == torch_backend.WARMUP_ITERS
+    assert log[1]["capture_ms"] > 0 and log[1]["device_ms_per_iter"] > 0
+    assert log[0]["capture_ms"] is None and log[0]["warmup_iters"] == 0
+    for got, want in zip(graphed, eager):
+        assert got.is_cuda and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_level_captured_on_a_second_thread_while_the_main_thread_segments(
+        cuda_device):
+    """An FFD level (NMI, the hinge on) captured and replayed on a second
+    thread's own stream, as the pipelined folder sweep registers on its
+    loader thread, while the main thread runs segment_volume again and
+    again: the level equals its serial run bit for bit, and every
+    segmentation equals the serial one."""
+    import threading
+
+    level = _level("ffd", "nmi", None, cuda_device, iters=40)
+    image, atlas, centers = _scan()
+    net = TriPlanarNet.from_params(
+        init_params(NARROW, torch.Generator().manual_seed(0)), NARROW,
+        cuda_device)
+
+    def segment():
+        return segment_volume(net, image, atlas, centers, want_probs=True,
+                              chunk=1000, engine="patch",
+                              probs_dtype=np.float32)
+
+    want_level, want_seg = level(False), segment()
+    out = {}
+
+    def loader():
+        try:
+            stream = torch.cuda.Stream(cuda_device)
+            with torch.cuda.stream(stream):
+                out["level"] = level(False)
+            stream.synchronize()
+        except BaseException as e:  # re-raised on the main thread
+            out["error"] = e
+
+    thread = threading.Thread(target=loader)
+    segs = []
+    thread.start()
+    while thread.is_alive() or not segs:
+        segs.append(segment())
+    thread.join()
+    if "error" in out:
+        raise out["error"]
+    for got, want in zip(out["level"], want_level):
+        assert torch.equal(got, want)
+    for labels, probs in segs:
+        np.testing.assert_array_equal(labels, want_seg[0])
+        np.testing.assert_array_equal(probs, want_seg[1])
+
+
 @pytest.mark.cuda
 def test_bench_scan_run_on_the_card_matches_the_cpu(cuda_device,
                                                      monkeypatch):
@@ -733,3 +842,24 @@ def test_bench_scan_run_on_the_card_matches_the_cpu(cuda_device,
     if name == "NVIDIA H100 80GB HBM3":
         assert rec["peak_flops_assumed"] == 989.4e12
         assert rec["est_mfu_bf16"] > 0 and rec["est_mfu_f32_vs_bf16_peak"] > 0
+
+
+@pytest.mark.cuda
+def test_a_level_that_cannot_be_captured_raises(cuda_device):
+    """run_level on the card with an iteration that reads a value back (a
+    synchronizing copy, which a capture refuses): the call raises after the
+    eager warm-up, and nothing falls back to the plain loop. Last in the
+    file, after every other use of the card."""
+    from subcort_tpu_torch.registration.torch_backend import (WARMUP_ITERS,
+                                                              run_level)
+
+    x = torch.zeros((), device=cuda_device)
+
+    def step():
+        x.add_(1.0)
+        x.item()
+
+    with pytest.raises(RuntimeError):
+        run_level(step, WARMUP_ITERS + 3, cuda_device)
+    torch.cuda.synchronize(cuda_device)
+    assert float(x) == WARMUP_ITERS

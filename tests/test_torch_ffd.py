@@ -25,7 +25,8 @@ from subcort_tpu.registration import jax_backend, jax_ffd
 from subcort_tpu_torch.io import NiftiImage, save_nii
 from subcort_tpu_torch.registration import (load_cpp_grid,
                                             resample_through_cpp, torch_ffd)
-from subcort_tpu_torch.registration.torch_backend import (CppGrid,
+from subcort_tpu_torch.registration.torch_backend import (WARMUP_ITERS,
+                                                          CppGrid,
                                                           downsample2,
                                                           linear_schedule,
                                                           spacing3)
@@ -207,12 +208,16 @@ def _jax_level_loss(d_aff, ref, flo, ref_affine, flo_inv, spacing, be, cost,
     return loss_fn
 
 
+@pytest.mark.parametrize("iters", [1, WARMUP_ITERS, WARMUP_ITERS + 1, 5])
 @pytest.mark.parametrize("cost,be", [("ssd", 0.05), ("nmi", 5e-4)])
-def test_level_loss_gradient_and_five_adam_steps_match(warped_pair, cost, be):
+def test_level_loss_gradient_and_five_adam_steps_match(warped_pair, cost, be,
+                                                       iters):
     """One loss and gradient of an FFD level with the hinge on (loss rtol
     1e-5; gradient rtol 1e-3, atol scaled by the largest |gradient|), then
-    5 Adam steps: control values within 1e-4 of the JAX ones (SSD; NMI as
-    stated below)."""
+    a level of ``iters`` Adam steps (1, the card's warm-up count, the
+    first count that replays a captured iteration there, and 5): control
+    values within 1e-4 of the JAX ones (SSD; NMI as stated below), every
+    loss within rtol 1e-4."""
     ref, flo = warped_pair
     disp, d_aff, ref_c, flo_c, ra, finv, spacing = _level_inputs(ref, flo)
     kw = dict(cost=cost, nbins=32, jw=1.0, vox_offset=0.25)
@@ -237,9 +242,10 @@ def test_level_loss_gradient_and_five_adam_steps_match(warped_pair, cost, be):
 
     want_d, want_l = jax_ffd._optimize_level(
         *map(jnp.asarray, (disp, d_aff, ref_c, flo_c, ra, finv)),
-        spacing, 5, be, 0.4, **kw)
-    got_d, got_l = torch_ffd._optimize_level(_t(disp), *tensors, spacing, 5,
-                                             be, 0.4, **kw)
+        spacing, iters, be, 0.4, **kw)
+    got_d, got_l = torch_ffd._optimize_level(_t(disp), *tensors, spacing,
+                                             iters, be, 0.4, **kw)
+    assert got_l.shape == (iters,)
     # Adam divides each control's step by its own gradient scale, so a
     # control whose NMI gradient is near zero (~1e-9, float32 rounding of
     # the histogram) moves by that rounding: under NMI 99% of the controls
@@ -253,12 +259,67 @@ def test_level_loss_gradient_and_five_adam_steps_match(warped_pair, cost, be):
 @pytest.mark.parametrize("iters", [1, 15, 60])
 def test_learning_rate_of_first_and_last_step(iters):
     """Step i (from 0) of a level uses lr * (1 - 0.9 i / iters), optax's
-    linear_schedule(lr, 0.1 lr, iters)."""
+    linear_schedule(lr, 0.1 lr, iters), from an int step and from the
+    level's float32 step count on its device."""
     sched = optax.linear_schedule(0.4, 0.04, max(iters, 1))
     for i in (0, iters - 1, iters):
         np.testing.assert_allclose(linear_schedule(0.4, i, iters),
                                    float(sched(i)), rtol=1e-6)
+        on_device = linear_schedule(0.4, torch.tensor(float(i)), iters)
+        assert on_device.dtype == torch.float32
+        np.testing.assert_allclose(float(on_device), float(sched(i)),
+                                   rtol=1e-6)
     assert linear_schedule(0.4, 0, iters) == 0.4
+
+
+# what reads a tensor's value back to the host
+HOST_READS = ("item", "__float__", "__int__", "__bool__", "tolist", "cpu",
+              "numpy")
+
+
+def guard_host_reads(monkeypatch, module):
+    """Wrap ``module.run_level`` so that each call of a level's iteration
+    runs with the Tensor methods of :data:`HOST_READS` raising. Returns the
+    list that counts those calls."""
+    real, calls = module.run_level, []
+
+    def raiser(name):
+        def read(*args, **kwargs):
+            raise AssertionError(f"the iteration read a tensor back: {name}")
+        return read
+
+    def run_level(step, iters, device, **kw):
+        def guarded():
+            with pytest.MonkeyPatch.context() as m:
+                for name in HOST_READS:
+                    m.setattr(torch.Tensor, name, raiser(name))
+                with pytest.raises(AssertionError, match="read a tensor"):
+                    torch.zeros(()).item()  # the guard is live
+                step()
+            calls.append(1)
+        real(guarded, iters, device, **kw)
+
+    monkeypatch.setattr(module, "run_level", run_level)
+    return calls
+
+
+@pytest.mark.parametrize("cost,be", [("ssd", 0.05), ("nmi", 5e-4)])
+def test_level_iteration_reads_nothing_back(warped_pair, monkeypatch, cost,
+                                            be):
+    """An FFD level's iteration (the hinge on) runs with every Tensor
+    method that reads a value back to the host raising: the iteration that
+    the card captures and replays takes no host input. Controls and losses
+    equal the unguarded level's."""
+    ref, flo = warped_pair
+    disp, d_aff, ref_c, flo_c, ra, finv, spacing = _level_inputs(ref, flo)
+    args = [_t(a) for a in (disp, d_aff, ref_c, flo_c, ra, finv)]
+    kw = dict(cost=cost, nbins=32, jw=1.0, vox_offset=0.25)
+    want = torch_ffd._optimize_level(*args, spacing, 3, be, 0.4, **kw)
+    calls = guard_host_reads(monkeypatch, torch_ffd)
+    got = torch_ffd._optimize_level(*args, spacing, 3, be, 0.4, **kw)
+    assert len(calls) == 3
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 # ----------------------------------------------------------- whole runs

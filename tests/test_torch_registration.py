@@ -38,6 +38,11 @@ from subcort_tpu_torch.registration.torch_backend import CppGrid
 
 torch.set_num_threads(1)
 
+# the iteration counts of a level held to the JAX package's: 1, the card's
+# eager warm-up, the first that replays a captured iteration, and 5
+LEVEL_ITERS = [1, torch_backend.WARMUP_ITERS, torch_backend.WARMUP_ITERS + 1,
+               5]
+
 TOOLS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools")
 needs_native = pytest.mark.skipif(
@@ -397,14 +402,17 @@ def _jax_affine_loss(center, ref, flo, ref_affine, flo_inv, cost, nbins=32):
     return loss_fn
 
 
+@pytest.mark.parametrize("iters", LEVEL_ITERS)
 @pytest.mark.parametrize("cost,dof", [("ssd", 6), ("ssd", 12), ("nmi", 6),
                                       ("nmi", 12)])
 def test_affine_level_loss_gradient_and_five_adam_steps_match(affine_level,
-                                                              cost, dof):
+                                                              cost, dof,
+                                                              iters):
     """One loss and gradient of an affine level (loss rtol 1e-5; gradient
-    rtol 1e-3, atol scaled by the largest |gradient|), then 5 Adam steps:
-    parameters within 1e-4 of the JAX ones, the rigid phase's six masked
-    parameters unmoved."""
+    rtol 1e-3, atol scaled by the largest |gradient|), then a level of
+    ``iters`` Adam steps (1, the card's warm-up count, one more, and 5):
+    parameters within 1e-4 of the JAX ones and every loss within rtol
+    1e-4, the rigid phase's six masked parameters unmoved."""
     pn, center, ref, flo, ra, finv = affine_level
     want, wgrad = jax.value_and_grad(
         _jax_affine_loss(center, ref, flo, ra, finv, cost))(jnp.asarray(pn))
@@ -419,15 +427,34 @@ def test_affine_level_loss_gradient_and_five_adam_steps_match(affine_level,
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
     _close_grad(q.grad.numpy(), wgrad, 1e-3)
 
-    want_p, want_l = jax_affine._optimize_level(*args, 5, 0.05, cost=cost,
-                                                dof=dof)
-    got_p, got_l = torch_affine._optimize_level(_t(pn), *tensors, 5, 0.05,
+    want_p, want_l = jax_affine._optimize_level(*args, iters, 0.05,
                                                 cost=cost, dof=dof)
+    got_p, got_l = torch_affine._optimize_level(_t(pn), *tensors, iters,
+                                                0.05, cost=cost, dof=dof)
+    assert got_l.shape == (iters,)
     np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), atol=1e-4)
     np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), rtol=1e-4)
     if dof == 6:
         np.testing.assert_array_equal(got_p.numpy()[6:], pn[6:])
         assert (got_p.numpy()[:6] != pn[:6]).all()
+
+
+@pytest.mark.parametrize("cost,dof", [("ssd", 12), ("nmi", 6)])
+def test_affine_level_iteration_reads_nothing_back(affine_level, monkeypatch,
+                                                   cost, dof):
+    """An affine level's iteration runs with every Tensor method that reads
+    a value back to the host raising (tests/test_torch_ffd.py's guard): the
+    iteration that the card captures and replays takes no host input.
+    Parameters and losses equal the unguarded level's."""
+    from test_torch_ffd import guard_host_reads
+
+    args = [_t(a) for a in affine_level]
+    want = torch_affine._optimize_level(*args, 3, 0.05, cost=cost, dof=dof)
+    calls = guard_host_reads(monkeypatch, torch_affine)
+    got = torch_affine._optimize_level(*args, 3, 0.05, cost=cost, dof=dof)
+    assert len(calls) == 3
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("cost", ["ssd", "nmi"])
