@@ -47,20 +47,27 @@ and the exit code is non-zero:
        ring, informative priors) written as NIfTI and read back by
        build_training_index; the shuffled index capped at 32,768 samples,
        the whole 3-subject stack kept (136 MB, beyond the 50 MB L2);
-       Trainer.fit at batch 128 for 2 epochs. Checks: gather kernel
-       launches >= train steps + eval batches, finite losses, epoch 2's
+       Trainer.fit at batch 128 for 2 epochs, every step after two
+       warm-up steps a replay of one captured CUDA graph. Checks: gather
+       kernel launches == train steps + eval batches (one per replay),
+       two warm-up steps and the rest replayed, finite losses, epoch 2's
        train loss below epoch 1's, the best-only checkpoint reloads bit-
        equal to the trainer's params, and the trained params segment the
        phase-4 subject through segment_folder (the dense default) with
-       non-zero labels. Prints epoch seconds and samples/s;
+       non-zero labels. Prints epoch seconds and samples/s, the capture's
+       ms and the bytes the caching allocator holds after the fit;
    (b) CUDA-event ms over 50 steps on a pre-staged batch of 128, each
-       beside the host's ms to enqueue it: the train step in float32 and
-       bfloat16, the float32 step with the plain gather, the gather kernel
-       alone on the stack beside its bound, its plain version and
-       torch.take; the float32 step's parts (forward, forward + backward,
-       Adam, BN EMA); the gather's share of the step; then torch.profiler
-       over 20 float32 steps: device ms by part, kernels per step, the
-       device's busy share;
+       beside the host's ms to enqueue it, beside the card's name and
+       power limit: the train step eager in float32 and bfloat16, the
+       float32 step with the plain gather, the gather kernel alone on the
+       stack beside its bound, its plain version and torch.take; the
+       float32 step's parts (forward, forward + backward, Adam, BN EMA);
+       the gather's share of the step; torch.profiler over 20 eager
+       float32 steps: device ms by part, kernels per step, the device's
+       busy share; then the same steps graphed (make_train_multistep: one
+       call of 50 replays after a call that captured), float32 and
+       bfloat16, and torch.profiler over a call of 20 replays, with the
+       gather kernel's device us per launch inside them;
    (c) one step (dropout 0, no augmentation) from the same seeded params
        and batch on the card and on the CPU: in float32, relative loss
        difference and BN EMA within 1e-5; in bfloat16, the relative loss
@@ -70,9 +77,12 @@ and the exit code is non-zero:
        noise 4, exact priors, seed 1), 6 epochs at batch 128 on an index
        capped at 4,096, with cuDNN's deterministic algorithms: best
        valid_accuracy >= 0.90 and held-out Dice >= 0.85 through
-       segment_volume. Prints, without a gate, bfloat16 vs
-       float32 label agreement of the trained MNI weights on the phase-4
-       scan;
+       segment_volume;
+   (e) a 1-epoch fit graphed and one with every step eager (fit's
+       _eager) from the same seed on (a)'s index, under cuDNN's
+       deterministic algorithms: histories (dur aside) and parameters
+       equal bit for bit. Prints, without a gate, bfloat16 vs float32
+       label agreement of the trained MNI weights on the phase-4 scan;
 12. registration with backend="torch" on the card, float32, TF32 off:
    (a) the resampler card vs CPU: the 15-channel MNI-sized prior volume
        (427 MB) through resample_through_cpp (a seeded smooth control grid
@@ -398,11 +408,12 @@ def time_ms(torch, fn, iters: int = 50, host: bool = False):
 
 
 def profile_steps(torch, step, steps: int = PROFILE_STEPS,
-                  parts=None) -> dict:
-    """torch.profiler over ``steps`` calls of ``step``: device ms per step
-    by part of the step (``parts``, by default KERNEL_PARTS), kernels per
-    step, and the device's busy share (device time over the window's wall
-    time)."""
+                  parts=None, per_call: int = 1) -> dict:
+    """torch.profiler over ``steps`` calls of ``step``, each ``per_call``
+    train steps: device ms per step by part of the step (``parts``, by
+    default KERNEL_PARTS), kernels per step, the device's busy share
+    (device time over the window's wall time), and the gather kernel's
+    device us per launch (None when it did not run)."""
     parts = KERNEL_PARTS if parts is None else parts
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -430,20 +441,25 @@ def profile_steps(torch, step, steps: int = PROFILE_STEPS,
               and not getattr(e, "is_user_annotation", False)
               and not e.key.startswith("Optimizer.")]
     device_ms = sum(device_us(e) for e in events) / 1e3
+    n = steps * per_call
     by_part = {}
     for e in events:
         part = next((name for name, keys in parts
                      if any(k in e.key for k in keys)), "other elementwise")
-        by_part[part] = by_part.get(part, 0.0) + device_us(e) / 1e3 / steps
-    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
-            "device_ms_per_step": device_ms / steps,
+        by_part[part] = by_part.get(part, 0.0) + device_us(e) / 1e3 / n
+    gathers = [e for e in events if "gather_triplanar" in e.key]
+    launches = sum(e.count for e in gathers)
+    return {"steps": n, "wall_ms_per_step": wall_ms / n,
+            "device_ms_per_step": device_ms / n,
             "device_busy_share": device_ms / wall_ms,
-            "kernels_per_step": sum(e.count for e in events) / steps,
+            "kernels_per_step": sum(e.count for e in events) / n,
+            "gather_us_per_launch": (sum(device_us(e) for e in gathers)
+                                     / launches if launches else None),
             "device_ms_per_step_by_part": dict(sorted(
                 by_part.items(), key=lambda kv: -kv[1]))}
 
 
-def train_phase(torch, device, image, atlas, roi) -> tuple:
+def train_phase(torch, device, smi, image, atlas, roi) -> tuple:
     """Phase 11: training on the card (see the module docstring). Returns
     its facts and the capped index, whose 3-subject stack phases 14(d) and
     15(b) train on again."""
@@ -459,7 +475,9 @@ def train_phase(torch, device, image, atlas, roi) -> tuple:
                                           list_training_subjects, mean_dice,
                                           train_split_stratified)
     from subcort_tpu_torch.config import exact_float32
-    from subcort_tpu_torch.engine.train import ADAM, _forward, train_step
+    from subcort_tpu_torch.engine.train import (ADAM, DeviceAdam, _forward,
+                                                make_train_multistep,
+                                                train_step)
     from subcort_tpu_torch.models import update_bn_ema
     from subcort_tpu_torch.ops import gather_kernel
     from subcort_tpu_torch.ops.gather_kernel import (gather_roofline_bytes,
@@ -505,10 +523,21 @@ def train_phase(torch, device, image, atlas, roi) -> tuple:
         gather_kernel.LAUNCHES = 0
         history = trainer.fit(index)
         launches = gather_kernel.LAUNCHES
+        reserved = torch.cuda.memory_reserved(device)
+        graph = trainer.step_graph
         check(len(history) == TRAIN_EPOCHS, "Trainer.fit ran every epoch")
-        check(launches >= steps + eval_batches,
-              f"train gather launches {launches} >= steps {steps} + eval "
+        check(launches == steps + eval_batches,
+              f"train gather launches {launches} == steps {steps} + eval "
               f"batches {eval_batches}")
+        check(graph is not None and graph.warmup_calls == 2
+              and graph.replays == steps - 2,
+              f"the fit replayed a captured step: {steps} steps, "
+              f"{getattr(graph, 'warmup_calls', None)} warm-up, "
+              f"{getattr(graph, 'replays', None)} replayed")
+        print(f"train fit: {graph.warmup_calls} warm-up steps, "
+              f"{graph.replays} replays of one captured step, capture "
+              f"{graph.capture_ms:.3f} ms; {reserved} bytes reserved by the "
+              "caching allocator after the fit")
         losses = [(h["train_loss"], h["valid_loss"]) for h in history]
         check(bool(np.isfinite(losses).all()), f"finite losses {losses}")
         check(history[1]["train_loss"] < history[0]["train_loss"],
@@ -528,8 +557,12 @@ def train_phase(torch, device, image, atlas, roi) -> tuple:
                   f"valid_accuracy {h['valid_accuracy']:.6f}")
         print(f"train main path: {steps} steps of {TRAIN_BATCH} + "
               f"{eval_batches} eval batches, {launches} gather launches")
-        out.update(train_launches=launches, train_steps=steps,
-                   train_eval_batches=eval_batches,
+        out.update(train_launches=launches, train_graphed_launches=launches,
+                   train_steps=steps, train_eval_batches=eval_batches,
+                   train_capture_ms=graph.capture_ms,
+                   train_warmup_steps=graph.warmup_calls,
+                   train_replayed_steps=graph.replays,
+                   train_reserved_bytes_after_fit=reserved,
                    train_epoch_s=[h["dur"] for h in history],
                    train_samples_per_s=[per_epoch / h["dur"]
                                         for h in history])
@@ -561,7 +594,7 @@ def train_phase(torch, device, image, atlas, roi) -> tuple:
         padded = volume.padded()
         gen = torch.Generator(device=device).manual_seed(0)
         net = TriPlanarNet.from_params(params, spec, device, trainable=True)
-        opt = torch.optim.Adam(net.parameters(), **ADAM)
+        opt = DeviceAdam(net.parameters(), **ADAM)
 
         def step(gather, dtype=None):
             return lambda: train_step(net, opt, gather(), lab, at, gen,
@@ -638,7 +671,51 @@ def train_phase(torch, device, image, atlas, roi) -> tuple:
                    train_step_plain_gather_ms=ms["step_plain_gather"],
                    train_step_host_ms=times["step_f32"][1],
                    train_step_profile=profile)
-        del net, opt, volume, padded, idx, views, bns, stats
+
+        # the same steps graphed: make_train_multistep's replays of one
+        # captured step on the pre-staged batch, STEP_ITERS steps a call
+        stacked = [t.expand((STEP_ITERS,) + tuple(t.shape)).contiguous()
+                   for t in (c, lab, at)]
+
+        def graphed(dtype):
+            """(CUDA-event ms, host enqueue ms) per step of a call of
+            STEP_ITERS replays (time_ms's first warm-up call captures),
+            the capture's ms, and in float32 torch.profiler over a call of
+            PROFILE_STEPS replays."""
+            with make_train_multistep(net, opt, volume, gen, spec.patch_size,
+                                      STEP_ITERS, compute_dtype=dtype) as m:
+                dev_ms, host_ms = time_ms(torch, lambda: m(*stacked),
+                                          iters=1, host=True)
+                prof = None
+                if dtype is None:
+                    sub = [t[:PROFILE_STEPS] for t in stacked]
+                    prof = profile_steps(torch, lambda: m(*sub), steps=1,
+                                         per_call=PROFILE_STEPS)
+                check(m.graphed.warmup_calls == 2 and m.graphed.replays
+                      == 6 * STEP_ITERS - 2 + (6 * PROFILE_STEPS
+                                               if prof else 0),
+                      f"timed steps replayed: {m.graphed.replays}")
+                return (dev_ms / STEP_ITERS, host_ms / STEP_ITERS,
+                        m.graphed.capture_ms, prof)
+
+        g32, g16 = graphed(None), graphed(torch.bfloat16)
+        print(f"train step graphed vs eager, batch {TRAIN_BATCH}, full "
+              f"width, {smi} (CUDA events over {STEP_ITERS} steps; device "
+              f"ms, host enqueue ms per step): float32 graphed {g32[0]:.4f}, "
+              f"{g32[1]:.4f}, eager {times['step_f32'][0]:.4f}, "
+              f"{times['step_f32'][1]:.4f}; bfloat16 graphed {g16[0]:.4f}, "
+              f"{g16[1]:.4f}, eager {times['step_bf16'][0]:.4f}, "
+              f"{times['step_bf16'][1]:.4f}; capture {g32[2]:.3f} ms "
+              f"(float32), {g16[2]:.3f} ms (bfloat16)")
+        print(f"train step graphed profile ({PROFILE_STEPS} replays): "
+              f"{json.dumps(g32[3])}")
+        out.update(train_step_graphed_ms=g32[0],
+                   train_step_graphed_enqueue_ms=g32[1],
+                   train_step_bf16_graphed_ms=g16[0],
+                   train_step_bf16_graphed_enqueue_ms=g16[1],
+                   train_step_bf16_host_ms=times["step_bf16"][1],
+                   train_step_graphed_profile=g32[3])
+        del net, opt, volume, padded, idx, views, bns, stats, stacked
 
         # (c) one step on the card and on the CPU, float32 and bfloat16,
         # from seeded initial params, so every run checks the same numbers
@@ -735,6 +812,32 @@ def train_phase(torch, device, image, atlas, roi) -> tuple:
         check(dice >= QUALITY_DICE, f"held-out Dice {dice} >= {QUALITY_DICE}")
         out.update(quality_valid_accuracy=best["valid_accuracy"],
                    quality_dice=dice)
+
+        # (e) a graphed and an eager 1-epoch fit from the same seed on (a)'s
+        # index, under cuDNN's deterministic algorithms
+        fits = {}
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            for eager in (False, True):
+                t = Trainer(dataclasses.replace(
+                    options, max_epochs=1, net_verbose=0,
+                    experiment=f"graphed_vs_eager_{eager}"), spec,
+                    weights_path=str(root / "nets"))
+                h = t.fit(index, _eager=eager)[0]
+                fits[eager] = ({k: v for k, v in h.items() if k != "dur"},
+                               t.params, h["dur"], t.step_graph)
+        finally:
+            cudnn.deterministic, cudnn.benchmark = flags
+        same = fits[False][0] == fits[True][0] and all(
+            torch.equal(fits[False][1][k], v)
+            for k, v in fits[True][1].items())
+        print(f"1-epoch fit graphed vs eager: {fits[False][2]:.4f} s vs "
+              f"{fits[True][2]:.4f} s, {fits[False][3].replays} replays; "
+              f"histories and parameters bit-equal: {same}")
+        check(same and fits[True][3] is None,
+              "graphed fit == eager fit, bit for bit")
+        out.update(train_epoch_graphed_vs_eager_s=[fits[False][2],
+                                                   fits[True][2]])
     finally:
         shutil.rmtree(root)
 
@@ -2354,7 +2457,7 @@ def main() -> None:
               f"{eng}: {agreement} >= {floor}")
 
     # 11. training
-    train, train_index = train_phase(torch, device, image, atlas, roi)
+    train, train_index = train_phase(torch, device, smi, image, atlas, roi)
 
     # 12. registration; its MNI-sized template and atlas stay for 14(b)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_work_"))

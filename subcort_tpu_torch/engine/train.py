@@ -28,6 +28,13 @@ applied after the optimizer step. The step runs with TF32 off
 cast of the parameters while the master parameters and Adam's state stay
 float32. Randomness (augmentation draws, dropout masks) comes from one
 explicit ``torch.Generator`` on the device, never torch's global one.
+Adam is :class:`DeviceAdam`: optax's arithmetic, its step count and
+learning rate on the device.
+
+``Trainer.fit`` runs its steps through :func:`make_train_multistep`, the
+counterpart of the JAX package's ``lax.scan`` of ``steps_per_call``
+steps: on the card, in one process, one step captured in a CUDA graph and
+replayed (:mod:`subcort_tpu_torch.utils.graphs`).
 
 History is JSONL plus the reference's ``<name>_history.pkl`` (epoch,
 train_loss, valid_loss, valid_accuracy, *_best flags, dur).
@@ -37,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import pickle
 import tempfile
@@ -61,9 +69,83 @@ from subcort_tpu_torch.ops.gather_kernel import (gather_triplanar_cuda,
 from subcort_tpu_torch.ops.patches import Patches
 from subcort_tpu_torch.parallel import distributed, sync_bn
 from subcort_tpu_torch.parallel.mesh import make_devices, shard_rows
+from subcort_tpu_torch.utils.graphs import GraphedStep
 from subcort_tpu_torch.utils.runtime import check_nans
 
 ADAM = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+
+
+class DeviceAdam(torch.optim.Optimizer):
+    """Adam with ``optax.adam``'s arithmetic (the JAX package's optimizer):
+    mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, then
+    p += -lr (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) at step t,
+    in float32, over every parameter with a gradient.
+
+    The step count (one for all parameters, ``step`` in each parameter's
+    state) and the learning rate (:meth:`set_lr`) are 0-dim float32
+    tensors on the parameters' device, so :meth:`step` takes no host input
+    and reads nothing back: a CUDA graph can capture it, and a replay uses
+    the learning rate of the moment. ``state_dict`` has
+    ``torch.optim.Adam``'s layout, and :meth:`load_state_dict` also takes
+    one written by ``torch.optim.Adam`` (a step count on the CPU)."""
+
+    def __init__(self, params, lr: float = ADAM["lr"],
+                 betas=ADAM["betas"], eps: float = ADAM["eps"]):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+        device = self.param_groups[0]["params"][0].device
+        self._count = torch.zeros((), dtype=torch.float32, device=device)
+        self._lrs = [torch.tensor(g["lr"], dtype=torch.float32,
+                                  device=device) for g in self.param_groups]
+
+    def set_lr(self, lr: float) -> None:
+        """Every group's learning rate from the next step on."""
+        for group, t in zip(self.param_groups, self._lrs):
+            group["lr"] = lr
+            t.fill_(lr)
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        super().load_state_dict(state_dict)
+        steps = [st["step"] for st in self.state.values() if "step" in st]
+        if steps:
+            self._count.copy_(torch.as_tensor(steps[0]))
+        else:
+            self._count.zero_()
+        for st in self.state.values():
+            st["step"] = self._count
+        for group, t in zip(self.param_groups, self._lrs):
+            t.fill_(group["lr"])
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("DeviceAdam takes no closure")
+        t = self._count + 1.0
+        for group, lr in zip(self.param_groups, self._lrs):
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                if not self.state[p]:
+                    self.state[p].update(step=self._count,
+                                         exp_avg=torch.zeros_like(p),
+                                         exp_avg_sq=torch.zeros_like(p))
+            grads = [p.grad for p in params]
+            mu = [self.state[p]["exp_avg"] for p in params]
+            nu = [self.state[p]["exp_avg_sq"] for p in params]
+            b1, b2 = group["betas"]
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_add_(nu, torch._foreach_mul(
+                torch._foreach_mul(grads, grads), 1.0 - b2))
+            mu_hat = torch._foreach_div(mu, 1.0 - torch.pow(b1, t))
+            nu_hat = torch._foreach_div(nu, 1.0 - torch.pow(b2, t))
+            denom = torch._foreach_sqrt(nu_hat)
+            torch._foreach_add_(denom, group["eps"])
+            update = torch._foreach_div(mu_hat, denom)
+            torch._foreach_mul_(update, -lr)
+            torch._foreach_add_(params, update)
+        self._count.copy_(t)
 
 
 # ----------------------------------------------------------------- augmentation
@@ -151,29 +233,164 @@ def train_step(net: TriPlanarNet, optimizer: torch.optim.Optimizer,
     returned is this rank's rows' mean; the global loss is its mean over
     the ranks."""
     with exact_float32():
-        if augment:
-            selected, r = draw_view_augment(
-                sync_bn.global_rows(len(labels)), generator)
-            views = augment_views(views, sync_bn.local_rows(selected),
-                                  sync_bn.local_rows(r, 1))
-        if intensity_augment:
-            shape = ((sync_bn.global_rows(views[0].shape[0]),)
-                     + tuple(views[0].shape[1:]))
-            gain, shift, sigma, noise = draw_intensity_augment(
-                shape, intensity_augment, generator)
-            views = augment_intensity(
-                views, *(sync_bn.local_rows(t) for t in (gain, shift, sigma)),
-                sync_bn.local_rows(noise, 1))
-        net.train()
-        optimizer.zero_grad(set_to_none=True)
-        logits = _forward(net, views, atlas, generator, compute_dtype)
-        loss = F.cross_entropy(logits.float(), labels)
+        loss = _step_loss(net, optimizer, views, labels, atlas, generator,
+                          augment, intensity_augment, compute_dtype)
         check_nans("the train loss", loss)
-        loss.backward()
-        sync_bn.all_reduce_gradients(net.parameters())
-        optimizer.step()
-        update_bn_ema(net)
+        _step_update(net, optimizer, loss)
     return loss.detach()
+
+
+def _step_loss(net, optimizer, views, labels, atlas, generator, augment,
+               intensity_augment, compute_dtype) -> torch.Tensor:
+    """:func:`train_step` up to the loss: augmentation, cleared
+    gradients, the train-mode forward and the cross-entropy."""
+    if augment:
+        selected, r = draw_view_augment(
+            sync_bn.global_rows(len(labels)), generator)
+        views = augment_views(views, sync_bn.local_rows(selected),
+                              sync_bn.local_rows(r, 1))
+    if intensity_augment:
+        shape = ((sync_bn.global_rows(views[0].shape[0]),)
+                 + tuple(views[0].shape[1:]))
+        gain, shift, sigma, noise = draw_intensity_augment(
+            shape, intensity_augment, generator)
+        views = augment_intensity(
+            views, *(sync_bn.local_rows(t) for t in (gain, shift, sigma)),
+            sync_bn.local_rows(noise, 1))
+    net.train()
+    optimizer.zero_grad(set_to_none=True)
+    logits = _forward(net, views, atlas, generator, compute_dtype)
+    return F.cross_entropy(logits.float(), labels)
+
+
+def _step_update(net, optimizer, loss: torch.Tensor) -> None:
+    """:func:`train_step` from the loss on: backward, the ranks' gradient
+    mean, the optimizer's step and the BN EMA."""
+    loss.backward()
+    sync_bn.all_reduce_gradients(net.parameters())
+    optimizer.step()
+    update_bn_ema(net)
+
+
+class TrainMultistep:
+    """What :func:`make_train_multistep` returns: a callable that runs K
+    train steps from (K, B, ...) stacked inputs, and a context manager
+    that releases its CUDA graph on exit (:meth:`close`)."""
+
+    def __init__(self, net: TriPlanarNet, optimizer: DeviceAdam, volume,
+                 generator: Optional[torch.Generator], patch: int,
+                 steps: int, augment: bool, intensity_augment: float,
+                 compute_dtype: Optional[torch.dtype], eager: bool):
+        self.net, self.optimizer, self.volume = net, optimizer, volume
+        self.generator, self.patch, self.steps = generator, patch, steps
+        self.options = (augment, intensity_augment, compute_dtype)
+        device = volume.device
+        # the step's inputs, loss slots and device step counter: made at
+        # the first call, at its batch shape, and kept, because a captured
+        # step reads and writes them where they lie
+        self.inputs = self.losses = self.slot = None
+        self.graphed = None
+        if device.type == "cuda" and not eager:
+            self.graphed = GraphedStep(
+                self.step, device, [] if generator is None else [generator])
+
+    def step(self) -> None:
+        """One train step on row ``slot`` of the stacked inputs, its loss
+        written to ``losses[slot]`` and ``slot`` advanced: no host input,
+        nothing read back, so the card can capture it."""
+        centers, labels, atlas = (t.index_select(0, self.slot)[0]
+                                  for t in self.inputs)
+        views = gather_triplanar_cuda(self.volume, centers, self.patch)
+        loss = _step_loss(self.net, self.optimizer, views, labels, atlas,
+                          self.generator, *self.options)
+        _step_update(self.net, self.optimizer, loss)
+        self.losses.index_copy_(0, self.slot, loss.detach().view(1))
+        self.slot.add_(1)
+
+    def __call__(self, centers: torch.Tensor, labels: torch.Tensor,
+                 atlas: torch.Tensor) -> torch.Tensor:
+        k = int(centers.shape[0])
+        if not 0 < k <= self.steps or labels.shape[0] != k \
+                or atlas.shape[0] != k:
+            raise ValueError(f"between 1 and {self.steps} steps of stacked "
+                             f"inputs, got {centers.shape[0]}, "
+                             f"{labels.shape[0]}, {atlas.shape[0]}")
+        given = (centers, labels, atlas)
+        if self.inputs is None:
+            self.inputs = tuple(torch.empty((self.steps,) + t.shape[1:],
+                                            dtype=t.dtype, device=t.device)
+                                for t in given)
+            self.losses = torch.zeros(self.steps, dtype=torch.float32,
+                                      device=centers.device)
+            self.slot = torch.zeros(1, dtype=torch.int64,
+                                    device=centers.device)
+        for buf, t in zip(self.inputs, given):
+            if t.shape[1:] != buf.shape[1:] or t.dtype != buf.dtype:
+                raise ValueError(f"steps of {tuple(buf.shape[1:])} "
+                                 f"{buf.dtype} as at the first call, got "
+                                 f"{tuple(t.shape[1:])} {t.dtype}")
+            buf[:k].copy_(t)
+        self.slot.zero_()
+        # autograd's NaN check of anomaly mode reads every backward output
+        # back, which a capture refuses: the fit checks the losses instead
+        with exact_float32(), torch.autograd.set_detect_anomaly(
+                torch.is_anomaly_enabled(), check_nan=False):
+            if self.graphed is None:
+                for _ in range(k):
+                    self.step()
+            else:
+                self.graphed.run(k)
+        return self.losses[:k].clone()
+
+    def close(self) -> None:
+        """Release the captured step's graph and its memory pool."""
+        if self.graphed is not None:
+            self.graphed.close()
+
+    def __enter__(self) -> "TrainMultistep":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def make_train_multistep(net: TriPlanarNet, optimizer: DeviceAdam, volume,
+                         generator: Optional[torch.Generator], patch: int,
+                         steps: int, *, augment: bool = False,
+                         intensity_augment: float = 0.0,
+                         compute_dtype: Optional[torch.dtype] = None,
+                         _eager: bool = False) -> TrainMultistep:
+    """K optimizer steps per call, the counterpart of the JAX package's
+    ``make_train_multistep`` (train.py:234-264, a jitted ``lax.scan``).
+
+    Binds ``net``, its ``optimizer``, the fit's gather ``volume`` (a
+    :class:`~subcort_tpu_torch.ops.gather_kernel.GatherVolume` on the card),
+    the step ``generator``, the ``patch`` size and :func:`train_step`'s
+    options. The callable takes (K, B, 4) int32 centers, (K, B) int64
+    labels and (K, B, 15) float32 atlas rows on the volume's device, K from
+    1 to ``steps`` and B the same in every call, and runs K steps, each
+    :func:`train_step` on its batch gathered from ``volume``; it returns
+    the K losses as a (K,) device tensor, reading nothing back.
+
+    On the CPU, and on the card with the private ``_eager`` (the tests and
+    the smoke compare the two; data-parallel ranks, whose gloo collectives
+    a graph cannot capture, run so too), a plain loop of the step. On the
+    card otherwise, a :class:`~subcort_tpu_torch.utils.graphs.GraphedStep`:
+    two eager steps, then one step (gather, augmentation, forward, loss,
+    backward, Adam, BN EMA) captured in a CUDA graph with ``generator``
+    registered, replayed for every later step of every call, so exactly K
+    steps run per call. Each step reads its inputs and writes its loss
+    through a device step counter. The graph bakes in the addresses of
+    the parameters, the gradients, Adam's state and ``volume``'s storage,
+    so it lives as long as the multistep object: :meth:`TrainMultistep.
+    close` (or leaving its ``with`` block) releases it. A failed capture
+    or replay raises; nothing falls back to the loop.
+
+    ``optimizer`` must take no host input in its step (a
+    :class:`DeviceAdam`). Autograd's anomaly NaN check is off inside a
+    call; the caller checks the returned losses."""
+    return TrainMultistep(net, optimizer, volume, generator, patch, steps,
+                          augment, intensity_augment, compute_dtype, _eager)
 
 
 @torch.no_grad()
@@ -332,12 +549,15 @@ class Trainer:
                             else None)
         # after a fit over several devices: each rank's gather launches
         self.rank_launches = None
+        # after a one-process fit on the card: its captured train step
+        # (warm-up and replay counts, capture ms); None when it ran eagerly
+        self.step_graph = None
 
         if options.bool("load_weights"):
             self._try_resume()
 
-    def _make_optimizer(self) -> torch.optim.Optimizer:
-        return torch.optim.Adam(self.net.parameters(), **ADAM)
+    def _make_optimizer(self) -> DeviceAdam:
+        return DeviceAdam(self.net.parameters(), **ADAM)
 
     @property
     def params(self) -> Params:
@@ -409,8 +629,22 @@ class Trainer:
         return trainer
 
     # -------------------------------------------------------------- epoch loop
-    def fit(self, index: TrainingIndex, max_epochs: Optional[int] = None):
-        """Train until max_epochs or early stopping; returns history list."""
+    def fit(self, index: TrainingIndex, max_epochs: Optional[int] = None,
+            _eager: bool = False):
+        """Train until max_epochs or early stopping; returns history list.
+
+        Every train step goes through one :func:`make_train_multistep` made
+        for the fit, ``steps_per_call`` steps a call: in one process on the
+        card, two eager steps and then the replays of one captured step,
+        released when the fit ends (:attr:`step_graph` then says what
+        ran); on the CPU, and in a data-parallel rank, whose gloo
+        collectives a CUDA graph cannot capture, a plain loop, as on the
+        card with the private ``_eager`` (for comparisons). The losses
+        are read back once a call. With ``utils.runtime.
+        enable_nan_checks`` on, a NaN among them raises
+        ``FloatingPointError`` naming the first step that had one, after
+        the call: up to ``steps_per_call - 1`` steps later than a check
+        before each step's backward would."""
         opts = self.options
         max_epochs = max_epochs if max_epochs is not None else opts["max_epochs"]
         if len(self.devices) > 1:
@@ -448,113 +682,122 @@ class Trainer:
         step_rows = batch_size * world
         mine = slice(rank * batch_size, (rank + 1) * batch_size)
 
-        while self.epoch < max_epochs:
-            self.epoch += 1
-            t0 = time.time()
-            if self._lr_per_epoch is not None:
-                lr = self._lr_per_epoch[min(self.epoch - 1,
-                                            len(self._lr_per_epoch) - 1)]
-                for group in self.optimizer.param_groups:
-                    group["lr"] = lr
-            order = train_idx
-            if self.shuffle_each_epoch:
-                order = self.shuffle_rng.permutation(train_idx)
+        multistep = make_train_multistep(
+            self.net, self.optimizer, volume, self.generator, patch,
+            self.steps_per_call, augment=self.augment,
+            intensity_augment=self.intensity_augment,
+            compute_dtype=self.train_dtype, _eager=_eager or dp is not None)
+        with multistep:
+            while self.epoch < max_epochs:
+                self.epoch += 1
+                t0 = time.time()
+                if self._lr_per_epoch is not None:
+                    self.optimizer.set_lr(self._lr_per_epoch[min(
+                        self.epoch - 1, len(self._lr_per_epoch) - 1)])
+                order = train_idx
+                if self.shuffle_each_epoch:
+                    order = self.shuffle_rng.permutation(train_idx)
 
-            # ---- train epoch: full global batches, the remainder dropped;
-            # losses read back once per steps_per_call steps
-            n_full = (len(order) // step_rows) * step_rows
-            rows = torch.from_numpy(order[:n_full].reshape(
-                -1, step_rows)[:, mine].reshape(-1)).to(dev)
-            e_centers, e_labels, e_atlas = centers[rows], labels[rows], atlas[rows]
-            losses, pending = [], []
+                # ---- train epoch: full global batches, the remainder
+                # dropped; steps_per_call steps a call, their losses read
+                # back after it
+                n_steps = len(order) // step_rows
+                rows = torch.from_numpy(order[:n_steps * step_rows].reshape(
+                    -1, step_rows)[:, mine].reshape(-1)).to(dev)
+                e_centers, e_labels, e_atlas = (centers[rows], labels[rows],
+                                                atlas[rows])
+                losses = []
+                for i in range(0, n_steps, self.steps_per_call):
+                    k = min(self.steps_per_call, n_steps - i)
+                    sl = slice(i * batch_size, (i + k) * batch_size)
+                    # the global batch's loss of each step: the mean over
+                    # the ranks
+                    got = sync_bn.all_reduce_mean(multistep(
+                        e_centers[sl].view(k, batch_size, -1),
+                        e_labels[sl].view(k, batch_size),
+                        e_atlas[sl].view(k, batch_size, -1))).tolist()
+                    nan = next((j for j, v in enumerate(got)
+                                if math.isnan(v)), None)
+                    if nan is not None:
+                        check_nans(f"the train loss of epoch {self.epoch}, "
+                                   f"step {i + nan + 1}", got[nan])
+                    losses.extend(got)
+                train_loss = (float(np.mean(np.asarray(losses, np.float32)))
+                              if losses else float("nan"))
 
-            def flush():
-                # the global batch's loss of each step: the mean over ranks
-                losses.extend(sync_bn.all_reduce_mean(
-                    torch.stack(pending)).tolist())
-                pending.clear()
+                # ---- validation
+                sums, corrects = [], []
+                for i in range(0, len(v_labels), eval_bs):
+                    sl = slice(i, i + eval_bs)
+                    views = gather_triplanar_cuda(volume, v_centers[sl],
+                                                  patch)
+                    s, c = eval_step(self.net, views, v_labels[sl],
+                                     v_atlas[sl])
+                    sums.append(s)
+                    corrects.append(c)
+                vloss = sum(torch.stack(sums).tolist()) if sums else 0.0
+                vcorrect = int(torch.stack(corrects).sum()) if corrects else 0
+                if dp is not None:
+                    total = sync_bn.all_reduce_sum(torch.tensor(
+                        [vloss, vcorrect], dtype=torch.float64, device=dev))
+                    vloss, vcorrect = float(total[0]), int(total[1])
+                check_nans("the validation loss", vloss)
+                vcount = len(valid_idx)
+                valid_loss = vloss / max(vcount, 1)
+                valid_acc = vcorrect / max(vcount, 1)
+                dur = time.time() - t0
 
-            for i in range(0, len(rows), batch_size):
-                sl = slice(i, i + batch_size)
-                views = gather_triplanar_cuda(volume, e_centers[sl], patch)
-                pending.append(train_step(
-                    self.net, self.optimizer, views, e_labels[sl],
-                    e_atlas[sl], self.generator, augment=self.augment,
-                    intensity_augment=self.intensity_augment,
-                    compute_dtype=self.train_dtype))
-                if len(pending) == self.steps_per_call:
-                    flush()
-            if pending:
-                flush()
-            train_loss = (float(np.mean(np.asarray(losses, np.float32)))
-                          if losses else float("nan"))
+                improved = valid_loss < self.best_valid_loss
+                if improved:
+                    self.best_valid_loss = valid_loss
+                    self.best_epoch = self.epoch
+                    if writes:
+                        # SaveWeights(only_best=True): reference-format pickle
+                        save_theano_checkpoint(self.net.state_dict(),
+                                               self.weights_file)
 
-            # ---- validation
-            sums, corrects = [], []
-            for i in range(0, len(v_labels), eval_bs):
-                sl = slice(i, i + eval_bs)
-                views = gather_triplanar_cuda(volume, v_centers[sl], patch)
-                s, c = eval_step(self.net, views, v_labels[sl], v_atlas[sl])
-                sums.append(s)
-                corrects.append(c)
-            vloss = sum(torch.stack(sums).tolist()) if sums else 0.0
-            vcorrect = int(torch.stack(corrects).sum()) if corrects else 0
-            if dp is not None:
-                total = sync_bn.all_reduce_sum(torch.tensor(
-                    [vloss, vcorrect], dtype=torch.float64, device=dev))
-                vloss, vcorrect = float(total[0]), int(total[1])
-            check_nans("the validation loss", vloss)
-            vcount = len(valid_idx)
-            valid_loss = vloss / max(vcount, 1)
-            valid_acc = vcorrect / max(vcount, 1)
-            dur = time.time() - t0
-
-            improved = valid_loss < self.best_valid_loss
-            if improved:
-                self.best_valid_loss = valid_loss
-                self.best_epoch = self.epoch
+                rec = {
+                    "epoch": self.epoch,
+                    "train_loss": train_loss,
+                    "valid_loss": valid_loss,
+                    "valid_accuracy": valid_acc,
+                    "train_loss_best": bool(train_loss <= min(
+                        [h["train_loss"] for h in self.history]
+                        + [train_loss])),
+                    "valid_loss_best": bool(improved),
+                    "valid_accuracy_best": bool(valid_acc >= max(
+                        [h["valid_accuracy"] for h in self.history]
+                        + [valid_acc])),
+                    "dur": dur,
+                }
+                self.history.append(rec)
                 if writes:
-                    # SaveWeights(only_best=True): reference-format pickle
-                    save_theano_checkpoint(self.net.state_dict(),
-                                           self.weights_file)
+                    with open(self.history_file, "a") as fh:
+                        fh.write(json.dumps(rec) + "\n")
+                    # reference-format mirror: nolearn SaveTrainingHistory
+                    # wrote a pickle of the per-epoch dict list (nets.py:156)
+                    with open(self.history_file.replace(
+                            "_history.jsonl", "_history.pkl"), "wb") as fh:
+                        pickle.dump(self.history, fh, protocol=2)
+                    self._save_state()
 
-            rec = {
-                "epoch": self.epoch,
-                "train_loss": train_loss,
-                "valid_loss": valid_loss,
-                "valid_accuracy": valid_acc,
-                "train_loss_best": bool(train_loss <= min(
-                    [h["train_loss"] for h in self.history] + [train_loss])),
-                "valid_loss_best": bool(improved),
-                "valid_accuracy_best": bool(valid_acc >= max(
-                    [h["valid_accuracy"] for h in self.history] + [valid_acc])),
-                "dur": dur,
-            }
-            self.history.append(rec)
-            if writes:
-                with open(self.history_file, "a") as fh:
-                    fh.write(json.dumps(rec) + "\n")
-                # reference-format mirror: nolearn SaveTrainingHistory wrote
-                # a pickle of the per-epoch dict list (nets.py:156)
-                with open(self.history_file.replace("_history.jsonl",
-                                                    "_history.pkl"), "wb") as fh:
-                    pickle.dump(self.history, fh, protocol=2)
-                self._save_state()
-
-            if verbose:
-                print(f"  epoch {self.epoch:4d}  train_loss {train_loss:.5f}  "
-                      f"valid_loss {valid_loss:.5f}  valid_acc {valid_acc:.5f}  "
-                      f"{'*' if improved else ' '}  {dur:.1f}s")
-
-            # EarlyStopping(patience): stop when no improvement for `patience`
-            # (every rank reads the same reduced valid_loss, so all stop at
-            # the same epoch)
-            if self.epoch >= self.best_epoch + patience:
                 if verbose:
-                    print(f"  early stopping: best epoch {self.best_epoch} "
-                          f"(valid_loss {self.best_valid_loss:.5f})")
-                break
+                    print(f"  epoch {self.epoch:4d}  train_loss "
+                          f"{train_loss:.5f}  valid_loss {valid_loss:.5f}  "
+                          f"valid_acc {valid_acc:.5f}  "
+                          f"{'*' if improved else ' '}  {dur:.1f}s")
 
+                # EarlyStopping(patience): stop when no improvement for
+                # `patience` (every rank reads the same reduced valid_loss,
+                # so all stop at the same epoch)
+                if self.epoch >= self.best_epoch + patience:
+                    if verbose:
+                        print(f"  early stopping: best epoch "
+                              f"{self.best_epoch} (valid_loss "
+                              f"{self.best_valid_loss:.5f})")
+                    break
+
+        self.step_graph = multistep.graphed
         return self.history
 
     def _fit_ranks(self, index: TrainingIndex, max_epochs: int) -> list:

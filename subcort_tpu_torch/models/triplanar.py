@@ -42,7 +42,9 @@ onto a device, for inference or, with ``trainable=True``, for training.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import struct
 from typing import Dict, Optional
 
 import torch
@@ -261,14 +263,32 @@ class TriPlanarNet(nn.Module):
         return self.out(x)
 
 
+@functools.cache
+def rounded_to(value: float, dtype: torch.dtype) -> float:
+    """``value`` as ``torch.tensor(value, dtype=dtype).item()`` gives it
+    (to float32 first, then to a narrower dtype, each to nearest with ties
+    to even), computed on the host without a tensor, so that a train step
+    that uses it reads nothing back from a device."""
+    if dtype == torch.float64:
+        return value
+    value = struct.unpack("f", struct.pack("f", value))[0]
+    if dtype == torch.float32 or value == 0.0:
+        return value
+    # significand bits: eps is 2 ** -(bits - 1)
+    bits = 1 - round(math.log2(torch.finfo(dtype).eps))
+    mantissa, exponent = math.frexp(value)
+    return math.ldexp(round(mantissa * 2 ** bits), exponent - bits)
+
+
 @torch.no_grad()
 def update_bn_ema(net: TriPlanarNet) -> None:
     """Fold each BN layer's last batch statistics into its stored (mean,
     inv_std): stored = (1 - alpha) * stored + alpha * batch, Lasagne's
     running average (triplanar.py:351-366), in place. The stored values
     stay float32; ``alpha * batch`` is taken in the batch's dtype, alpha
-    rounded to it, as the JAX package takes it. Layers without new
-    statistics keep theirs; the statistics are consumed."""
+    rounded to it (:func:`rounded_to`), as the JAX package takes it.
+    Layers without new statistics keep theirs; the statistics are
+    consumed."""
     stored, batch = [], []
     for m in net.modules():
         if isinstance(m, _BatchNorm) and m.batch_stats is not None:
@@ -277,7 +297,7 @@ def update_bn_ema(net: TriPlanarNet) -> None:
             m.batch_stats = None
     if stored:
         a = net.spec.bn_alpha
-        a_batch = torch.tensor(a, dtype=batch[0].dtype).item()
+        a_batch = rounded_to(a, batch[0].dtype)
         torch._foreach_mul_(stored, 1 - a)
         torch._foreach_add_(stored, [t.to(s.dtype) for s, t in zip(
             stored, torch._foreach_mul(batch, a_batch))])

@@ -23,7 +23,8 @@ On the CPU the wrapper runs the plain version
 it launches the kernel on a :class:`GatherVolume` or raises, except at a
 patch size other than 32, which takes the plain version on the card as
 the JAX package takes its plain gather there. ``LAUNCHES`` counts kernel
-launches, and nothing else.
+launches, and nothing else: a launch recorded by a CUDA graph's capture
+(:mod:`subcort_tpu_torch.utils.graphs`) counts once per replay.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from subcort_tpu_torch.ops.patches import (HALF, PATCH, Patches,
                                            gather_triplanar,
                                            gather_triplanar_subjects)
 from subcort_tpu_torch.utils.build import load_library
+from subcort_tpu_torch.utils.graphs import count_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gather_triplanar.cu"
 
@@ -83,6 +85,12 @@ class GatherVolume(NamedTuple):
         (S, X', Y', Z')."""
         view = self.xyz[..., :self.shape[3]]
         return view if self.stacked else view[0]
+
+
+def _add_launches(n: int) -> None:
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += n
 
 
 def _round_up(n: int, k: int = ALIGN) -> int:
@@ -235,7 +243,6 @@ def gather_triplanar_cuda(volume: torch.Tensor | GatherVolume,
     version on the card, from ``volume.padded()``, and launches nothing
     (:func:`takes_kernel`).
     """
-    global LAUNCHES
     if isinstance(volume, GatherVolume):
         _check_prepared(volume, centers)
     else:
@@ -272,6 +279,5 @@ def gather_triplanar_cuda(volume: torch.Tensor | GatherVolume,
         msg = lib.gather_triplanar_error_string(err).decode()
         raise RuntimeError(f"gather_triplanar launch failed: error {err} "
                            f"({msg})")
-    with _COUNT_LOCK:
-        LAUNCHES += 1
+    count_launch(_add_launches)
     return outs

@@ -22,7 +22,6 @@ Every public function takes a ``device``; ``None`` means
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import NamedTuple, Optional, Tuple
 
@@ -31,6 +30,7 @@ import torch
 
 from subcort_tpu_torch.config import exact_float32, resolve_device
 from subcort_tpu_torch.io import load_nii
+from subcort_tpu_torch.utils.graphs import WARMUP, GraphedStep, timed
 
 # When a list, every optimiser level (torch_affine / torch_ffd) appends one
 # dict (run_level): stage, level shape, iterations, whether it replayed a
@@ -42,12 +42,8 @@ LEVEL_LOG: Optional[list] = None
 # optax.adam's defaults, the JAX package's optimiser
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
-# eager iterations of a level on its capture stream before one is captured:
-# the first creates cuBLAS's workspace for that stream and grows the
-# caching allocator, which a capture must not have to do
-WARMUP_ITERS = 2
-
-_THREAD = threading.local()
+# eager iterations of a level before one is captured (utils/graphs.py)
+WARMUP_ITERS = WARMUP
 
 
 class CppGrid(NamedTuple):
@@ -162,58 +158,6 @@ def adam_level(loss_fn, x0: torch.Tensor, iters: int, lr: float,
     return step, x, losses
 
 
-class LevelTimer:
-    """Times one span of an optimiser level for :data:`LEVEL_LOG` (a no-op
-    while that is None): CUDA events on the current stream around the
-    span, and the host's time to enqueue it."""
-
-    def __init__(self, device: torch.device):
-        self.on = LEVEL_LOG is not None
-        self.events = None
-        if not self.on:
-            return
-        if device.type == "cuda":
-            self.events = [torch.cuda.Event(enable_timing=True)]
-            self.events[0].record()
-        self.t0 = time.perf_counter()
-
-    def stop(self) -> None:
-        if not self.on:
-            return
-        self.host_ms = (time.perf_counter() - self.t0) * 1e3
-        if self.events is not None:
-            self.events.append(torch.cuda.Event(enable_timing=True))
-            self.events[1].record()
-
-    def per_iter(self, n: int) -> Tuple[Optional[float], float]:
-        """(device ms, host enqueue ms) per each of the span's ``n``
-        iterations; waits for the span's end on the device."""
-        device_ms = None
-        if self.events is not None:
-            self.events[1].synchronize()
-            device_ms = self.events[0].elapsed_time(self.events[1]) / max(n, 1)
-        return device_ms, self.host_ms / max(n, 1)
-
-
-def _capture_stream(device: torch.device):
-    """This thread's stream for capturing levels on ``device``: one per
-    thread and card, so the caching allocator reuses a level's freed
-    blocks in the next (it reuses them only on their own stream)."""
-    streams = _THREAD.__dict__.setdefault("capture_streams", {})
-    if device.index not in streams:
-        streams[device.index] = torch.cuda.Stream(device)
-    return streams[device.index]
-
-
-def _timed(fn, n: int, device: torch.device) -> LevelTimer:
-    """``n`` calls of ``fn``; their :class:`LevelTimer`."""
-    timer = LevelTimer(device)
-    for _ in range(n):
-        fn()
-    timer.stop()
-    return timer
-
-
 def run_level(step, iters: int, device: torch.device, eager: bool = False,
               **facts) -> None:
     """Run one optimiser level: ``iters`` calls of ``step``
@@ -221,16 +165,14 @@ def run_level(step, iters: int, device: torch.device, eager: bool = False,
 
     On the CPU, and on the card when ``eager`` (tests and the smoke
     compare the two), a plain loop. Otherwise the counterpart of the JAX
-    package's compiled ``lax.scan``: on this thread's capture stream,
-    ordered after the caller's stream by an event and the caller after it
-    again at the end (no device-wide synchronize: the pipelined folder
-    sweep registers on its loader thread while the main thread segments),
-    :data:`WARMUP_ITERS` eager iterations, then one iteration captured in
-    a CUDA graph (thread-local capture mode) and replayed for the rest, so
-    the level still runs exactly ``iters`` iterations. A level with no
-    iteration left to replay finishes eagerly. The graph goes when the
-    level ends, and its memory pool back to the caching allocator. A
-    failed capture or replay raises; nothing falls back to the loop.
+    package's compiled ``lax.scan``: a :class:`~subcort_tpu_torch.utils.
+    graphs.GraphedStep` (:data:`WARMUP_ITERS` eager iterations on this
+    thread's capture stream, then one captured in a CUDA graph and
+    replayed for the rest), so the level still runs exactly ``iters``
+    iterations. A level with no iteration left to replay finishes eagerly.
+    The graph goes when the level ends, and its memory pool back to the
+    caching allocator. A failed capture or replay raises; nothing falls
+    back to the loop.
 
     With :data:`LEVEL_LOG` a list, appends ``facts`` with: ``iters``;
     ``replayed``; ``warmup_iters``; ``capture_ms`` (host ms to capture
@@ -241,57 +183,34 @@ def run_level(step, iters: int, device: torch.device, eager: bool = False,
     card, ``reserved_bytes`` (the caching allocator's, graph pools
     included, at the level's end)."""
     t_level = time.perf_counter()
+    on = LEVEL_LOG is not None
     with exact_float32():
         if device.type == "cuda" and not eager:
-            warmup, capture_ms, rest = _run_graphed(step, iters, device)
+            with GraphedStep(step, device) as graphed:
+                first, rest = graphed.run(iters, on)
         else:
-            warmup, capture_ms, rest = None, None, _timed(step, iters, device)
-    if LEVEL_LOG is None:
+            first, rest = timed(step, iters, device, on), None
+    if not on:
         return
-    n_warm = 0 if warmup is None else WARMUP_ITERS
-    entry = dict(facts, iters=iters, replayed=warmup is not None,
-                 warmup_iters=n_warm, capture_ms=capture_ms,
+    replayed = rest is not None
+    n_warm = WARMUP_ITERS if replayed else 0
+    entry = dict(facts, iters=iters, replayed=replayed,
+                 warmup_iters=n_warm,
+                 capture_ms=graphed.capture_ms if replayed else None,
                  warmup_device_ms_per_iter=None,
                  warmup_enqueue_ms_per_iter=None)
-    entry["device_ms_per_iter"], entry["host_enqueue_ms_per_iter"] = \
-        rest.per_iter(iters - n_warm)
-    if warmup is not None:
+    if replayed:
+        entry["device_ms_per_iter"], entry["host_enqueue_ms_per_iter"] = \
+            rest.per_call(iters - n_warm)
         entry["warmup_device_ms_per_iter"], \
-            entry["warmup_enqueue_ms_per_iter"] = warmup.per_iter(n_warm)
+            entry["warmup_enqueue_ms_per_iter"] = first.per_call(n_warm)
+    else:
+        entry["device_ms_per_iter"], entry["host_enqueue_ms_per_iter"] = \
+            first.per_call(iters)
     if device.type == "cuda":
         entry["reserved_bytes"] = torch.cuda.memory_reserved(device)
     entry["level_ms"] = (time.perf_counter() - t_level) * 1e3
     LEVEL_LOG.append(entry)
-
-
-def _run_graphed(step, iters: int, device: torch.device):
-    """:func:`run_level` on the card. Returns the warm-up's timer, the
-    capture's host ms and the replays' timer; (None, None, the loop's
-    timer) for a level too short to replay."""
-    caller = torch.cuda.current_stream(device)
-    side = _capture_stream(device)
-    side.wait_stream(caller)
-    graph = warmup = capture_ms = None
-    with torch.cuda.stream(side):
-        if iters <= WARMUP_ITERS:
-            rest = _timed(step, iters, device)
-        else:
-            warmup = _timed(step, WARMUP_ITERS, device)
-            graph = torch.cuda.CUDAGraph()
-            t0 = time.perf_counter()
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                step()
-            finally:
-                graph.capture_end()
-            capture_ms = (time.perf_counter() - t0) * 1e3
-            rest = _timed(graph.replay, iters - WARMUP_ITERS, device)
-    caller.wait_stream(side)
-    if graph is not None:
-        # the replays end before the graph's memory goes back
-        side.synchronize()
-        graph.reset()
-    return warmup, capture_ms, rest
 
 
 def _bspline_weights(t: torch.Tensor) -> torch.Tensor:

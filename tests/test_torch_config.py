@@ -164,12 +164,14 @@ def test_port_exports_what_the_jax_package_exports(package):
                                     "subcort_tpu_torch.parallel.distributed",
                                     "subcort_tpu_torch.parallel.sync_bn",
                                     "subcort_tpu_torch.parallel.infer_sharded",
-                                    "subcort_tpu_torch.parallel.fcn_sharded"])
+                                    "subcort_tpu_torch.parallel.fcn_sharded",
+                                    "subcort_tpu_torch.utils.graphs"])
 def test_new_modules_alone_import_no_jax(module):
-    """Each module of the command-line and multi-device slices, alone in a
-    fresh interpreter (the CLI's parser built as well), loads no ``jax`` or
-    ``subcort_tpu`` module; ``parallel.distributed`` holds the entry of
-    every rank the trainer spawns."""
+    """Each module of the command-line and multi-device slices, and the
+    CUDA-graph helper of the registration levels and the train multistep,
+    alone in a fresh interpreter (the CLI's parser built as well), loads
+    no ``jax`` or ``subcort_tpu`` module; ``parallel.distributed`` holds
+    the entry of every rank the trainer spawns."""
     code = (f"import sys, importlib\n"
             f"m = importlib.import_module({module!r})\n"
             "getattr(m, '_build_parser', lambda: None)()\n"

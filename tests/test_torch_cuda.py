@@ -2,8 +2,10 @@
 train step (at patch 32 and at patch 40, which takes the plain gather), the
 on-device registration and connected components on the card against the
 CPU, registration levels replayed from a CUDA graph against the plain loop
-(also captured on a second thread while the main one segments),
-``exact_float32`` under two threads doing card work, and the
+(also captured on a second thread while the main one segments), the train
+multistep and ``Trainer.fit`` replaying one captured step against the
+plain loop (float32, bfloat16, patch 40, a learning-rate schedule, a
+resume, a NaN), ``exact_float32`` under two threads doing card work, and the
 multi-device paths on the one card (the patch engine over two entries of
 ``cuda:0``; the synced step over one NCCL rank and over two gloo ranks,
 whose rank functions come from tests/test_torch_distributed.py), and the
@@ -842,6 +844,182 @@ def test_bench_scan_run_on_the_card_matches_the_cpu(cuda_device,
     if name == "NVIDIA H100 80GB HBM3":
         assert rec["peak_flops_assumed"] == 989.4e12
         assert rec["est_mfu_bf16"] > 0 and rec["est_mfu_f32_vs_bf16_peak"] > 0
+
+
+@pytest.fixture()
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the block (the default
+    convolution backward sums in no fixed order, so two eager runs may
+    differ in the last bits)."""
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    yield
+    cudnn.deterministic, cudnn.benchmark = flags
+
+
+FULL_DROPOUT = TriPlanarSpec()
+MULTISTEP_CASES = {
+    "float32": (FULL_DROPOUT, None, dict(augment=True, intensity_augment=0.3)),
+    "bfloat16": (FULL_DROPOUT, torch.bfloat16, dict(augment=True)),
+    "patch40": (dataclasses.replace(FULL_DROPOUT, patch_size=40), None, {}),
+}
+
+
+def _multistep_run(device, case, eager, calls=(10, 3), batch=128):
+    """One multistep at full width over ``calls`` calls of (K, 128) rows of
+    a 2-subject stack, from seeded params and a seeded device generator,
+    graphed or with ``eager`` the plain loop: (losses, state dict, Adam's
+    state, the generator's state, gather launches, the GraphedStep)."""
+    from subcort_tpu_torch.engine.train import (DeviceAdam,
+                                                make_train_multistep)
+
+    spec, dtype, opts = MULTISTEP_CASES[case]
+    n = sum(calls) * batch
+    vols, centers, labels, atlas = _train_batch(seed=9, b=n,
+                                                extent=(40, 44, 36))
+    params = init_params(spec, torch.Generator().manual_seed(6))
+    net = TriPlanarNet.from_params(params, spec, device, trainable=True)
+    optimizer = DeviceAdam(net.parameters(), **ADAM)
+    gen = torch.Generator(device=device).manual_seed(8)
+    volume = prepare_gather_volume(torch.from_numpy(vols).to(device))
+    rows = [torch.from_numpy(a).to(device) for a in (centers, labels, atlas)]
+    before, losses, i = gather_kernel.LAUNCHES, [], 0
+    with make_train_multistep(net, optimizer, volume, gen, spec.patch_size,
+                              max(calls), compute_dtype=dtype, _eager=eager,
+                              **opts) as ms:
+        for k in calls:
+            sl = slice(i * batch, (i + k) * batch)
+            losses.append(ms(*(r[sl].view((k, batch) + r.shape[1:])
+                               for r in rows)))
+            i += k
+    launches = gather_kernel.LAUNCHES - before
+    adam = [{k: v.clone() for k, v in optimizer.state[p].items()}
+            for p in net.parameters()]
+    return (torch.cat(losses), net.state_dict(), adam, gen.get_state(),
+            launches, ms.graphed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(MULTISTEP_CASES))
+def test_graphed_multistep_equals_eager_multistep(cuda_device,
+                                                  deterministic_cudnn, case):
+    """Full width, batch 128, 13 steps in two calls (10, then 3) on a
+    2-subject stack: the replays of one captured step against the plain
+    loop, bit for bit: the losses, parameters and BN EMA, Adam's state and
+    the step generator's state (float32 with dropout, view and intensity
+    augmentation; bfloat16; patch 40, the plain gather on the card). The
+    gather kernel launches once per step, graphed or not; at patch 40
+    never."""
+    eager = _multistep_run(cuda_device, case, True)
+    graphed = _multistep_run(cuda_device, case, False)
+    steps = len(eager[0])
+    assert eager[5] is None
+    g = graphed[5]
+    assert (g.warmup_calls, g.replays) == (2, steps - 2) and g.capture_ms > 0
+    assert g.graph is None  # released when the multistep closed
+    assert len(set(graphed[0].tolist())) == steps
+    assert torch.equal(graphed[0], eager[0])
+    for k, v in eager[1].items():
+        assert torch.equal(graphed[1][k], v), k
+    for got, want in zip(graphed[2], eager[2]):
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    assert torch.equal(graphed[3], eager[3])
+    want_launches = 0 if case == "patch40" else steps
+    assert graphed[4] == eager[4] == want_launches
+
+
+def _card_index(seed=5, b=600):
+    vols, centers, labels, atlas = _train_batch(seed=seed, b=b)
+    return TrainingIndex(vols, centers, labels.astype(np.int32), atlas,
+                         ["a", "b"])
+
+
+def _card_options(name, **kw):
+    return Options(**{**dict(experiment=name, batch_size=32, max_epochs=3,
+                             patience=5, train_split=0.25, net_verbose=0,
+                             load_weights=False, seed=2), **kw})
+
+
+def _strip(history):
+    return [{k: v for k, v in h.items() if k != "dur"} for h in history]
+
+
+@pytest.mark.cuda
+def test_graphed_fit_with_lr_schedule_equals_eager_fit(
+        cuda_device, deterministic_cudnn, tmp_path):
+    """Three epochs with a learning-rate schedule, dropout and
+    augmentation: the graphed fit (captured once, its replays taking each
+    epoch's rate) equals the _eager fit bit for bit, history and
+    parameters, and the kernel launched exactly once per step and per eval
+    batch."""
+    from subcort_tpu_torch.engine import train_split_stratified
+
+    index = _card_index()
+    spec = dataclasses.replace(NARROW, dropout_conv=0.3, dropout_fc=0.3)
+    runs = {}
+    for eager in (True, False):
+        trainer = Trainer(_card_options(f"lr{eager}"), spec=spec,
+                          augment=True, lr_schedule=(1e-3, 1e-4),
+                          steps_per_call=4,
+                          weights_path=str(tmp_path / str(eager)))
+        before = gather_kernel.LAUNCHES
+        history = trainer.fit(index, _eager=eager)
+        runs[eager] = (_strip(history), trainer.params,
+                       gather_kernel.LAUNCHES - before, trainer.step_graph)
+    t_idx, v_idx = train_split_stratified(index.labels, 0.25)
+    steps = 3 * (len(t_idx) // 32)
+    assert runs[True][3] is None
+    graph = runs[False][3]
+    assert (graph.warmup_calls, graph.replays) == (2, steps - 2)
+    assert runs[False][0] == runs[True][0]
+    assert all(torch.equal(runs[False][1][k], v)
+               for k, v in runs[True][1].items())
+    evals = 3 * -(-len(v_idx) // 2048)
+    assert runs[False][2] == runs[True][2] == steps + evals
+
+
+@pytest.mark.cuda
+def test_graphed_fit_resumes_to_the_uninterrupted_fit(
+        cuda_device, deterministic_cudnn, tmp_path):
+    """A graphed fit stopped after epoch 1 and resumed from its state
+    file gives the uninterrupted graphed fit's history and parameters."""
+    index = _card_index(seed=6)
+    kw = dict(spec=NARROW, augment=True, shuffle_each_epoch=True,
+              steps_per_call=4)
+    whole = Trainer(_card_options("whole", max_epochs=2), **kw,
+                    weights_path=str(tmp_path / "a"))
+    want = _strip(whole.fit(index))
+    Trainer(_card_options("part", max_epochs=1), **kw,
+            weights_path=str(tmp_path / "b")).fit(index)
+    resumed = Trainer(_card_options("part", max_epochs=2, load_weights=True),
+                      **kw, weights_path=str(tmp_path / "b"))
+    assert resumed.epoch == 1
+    assert _strip(resumed.fit(index)) == want
+    assert resumed.step_graph.replays > 0
+    assert all(torch.equal(resumed.params[k], v)
+               for k, v in whole.params.items())
+
+
+@pytest.mark.cuda
+def test_graphed_fit_raises_on_a_nan_loss(cuda_device, tmp_path):
+    """With the checks on, a graphed fit from a NaN parameter raises
+    FloatingPointError naming step 1, after the call's replays."""
+    from subcort_tpu_torch.utils import runtime
+
+    params = init_params(NARROW, torch.Generator().manual_seed(0))
+    params["fc1.weight"][0, 0] = float("nan")
+    trainer = Trainer(_card_options("nan"), spec=NARROW, params=params,
+                      steps_per_call=8, weights_path=str(tmp_path))
+    runtime.enable_nan_checks()
+    try:
+        with pytest.raises(FloatingPointError,
+                           match="NaN in the train loss of epoch 1, step 1 "):
+            trainer.fit(_card_index())
+    finally:
+        runtime.NAN_CHECKS = False
+        torch.autograd.set_detect_anomaly(False)
 
 
 @pytest.mark.cuda
