@@ -36,8 +36,11 @@ and the exit code is non-zero:
    agreement >= 0.9999; the default uint8 prob map within a step;
 8. dense card vs CPU on the candidates of one 24^3 sub-box: label
    agreement >= 0.999;
-9. device time of fcn_forward_slab on the pre-staged MNI slab and of the
-   patch engine's forward_centers (CUDA events), with TFLOP/s;
+9. device time of fcn_forward_slab on the pre-staged MNI slab (CUDA
+   events), with TFLOP/s; the patch engine's forward_centers over every
+   candidate: device ms by CUDA events beside the host's enqueue ms and
+   its wall ms (ended by a synchronize), and by torch.profiler the kernels
+   per chunk and the device's busy share;
 10. bfloat16 vs float32 on all candidates, both engines, with the
    segment_volume seconds of all four: label agreement at least the JAX
    package's own on the same scan and weights, less 0.002;
@@ -175,7 +178,20 @@ and the exit code is non-zero:
        loss, gather launches per rank = its steps + eval batches, files
        from rank 0 only;
    (c) one NCCL rank (world 1): its step equals the plain step bit for
-       bit, both under cuDNN's deterministic algorithms;
+       bit, both under cuDNN's deterministic algorithms; in the same rank,
+       Trainer.fit through parallel/distributed.py::train_rank (as a fit
+       over several cards runs each rank) on the index capped at 6,912
+       for 2 epochs at batch 128, graphed (the rank's captured step
+       replayed, the synced BN's and the gradients' all-reduces inside
+       the graph) and once with _eager=True, both under cuDNN's
+       deterministic algorithms: histories, parameters, BN EMA, Adam
+       state and the step generator bit-equal; gather launches = steps +
+       eval batches in both; 2 warm-up steps and the rest replayed, the
+       capture's ms; then, with cuDNN's default algorithms, the rank's
+       multistep on the step's 256 rows, 20 steps a call, graphed and
+       eager, and one process's graphed: ms per step by CUDA events beside
+       the host's enqueue ms. The two gloo ranks of (b)'s fit report eager
+       steps;
    (d) Trainer(data_parallel = 2) raises ValueError with one card, and
        _data_parallel_devices clamps to [cuda:0] with its note;
 16. the quality and training benchmarks of subcort_tpu_torch/bench/, each
@@ -219,6 +235,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -1669,6 +1686,76 @@ def _dp_step_rank(rank, world, device, workdir, tag, dtypes,
             (work / f"step_ms_{tag}.json").write_text(json.dumps(ms))
 
 
+def _multistep_ms(device, workdir, timed_steps, modes=("graphed", "eager")):
+    """The multistep on phase 15's step (``workdir``'s seeded full-width
+    params, generator seed and rows; augmentation on), ``timed_steps``
+    steps a call, graphed and or eager (``modes``): {mode: CUDA-event ms
+    and host enqueue ms per step, the capture's ms}."""
+    import torch
+
+    from subcort_tpu_torch import TriPlanarNet, TriPlanarSpec
+    from subcort_tpu_torch.engine.train import (ADAM, DeviceAdam,
+                                                make_train_multistep)
+    from subcort_tpu_torch.ops.gather_kernel import prepare_gather_volume
+
+    work = Path(workdir)
+    setup = torch.load(work / "setup.pt")
+    volume = prepare_gather_volume(torch.from_numpy(
+        np.load(work / "stack.npy", mmap_mode="c")).to(device))
+    stacked = [setup[k].to(device).expand(
+        (timed_steps,) + tuple(setup[k].shape)).contiguous()
+        for k in ("centers", "labels", "atlas")]
+    times = {}
+    for name in modes:
+        eager = name == "eager"
+        net = TriPlanarNet.from_params(setup["params"], TriPlanarSpec(),
+                                       device, trainable=True)
+        gen = torch.Generator(device=device).manual_seed(setup["seed"])
+        with make_train_multistep(
+                net, DeviceAdam(net.parameters(), **ADAM), volume, gen,
+                net.spec.patch_size, timed_steps, augment=True,
+                _eager=eager) as m:
+            ms, host_ms = time_ms(torch, lambda: m(*stacked), iters=1,
+                                  host=True)
+            times[name] = {"ms": ms / timed_steps,
+                           "enqueue_ms": host_ms / timed_steps,
+                           "capture_ms": (None if eager
+                                          else m.graphed.capture_ms)}
+    return times
+
+
+def _dp_nccl_rank(rank, world, device, workdir, timed_steps):
+    """Phase 15(c)'s one NCCL rank: Trainer.fit through
+    distributed.train_rank from the handoffs in ``workdir``'s
+    ``fit_graphed`` and ``fit_eager`` (under the launcher's deterministic
+    cuDNN flags); then :func:`_dp_step_rank`'s step (tag "nccl1"); then,
+    with cuDNN's default algorithms, :func:`_multistep_ms` in the rank,
+    saved as ``rank_step_ms.json``."""
+    import torch
+
+    from subcort_tpu_torch.parallel import distributed
+
+    work = Path(workdir)
+    for tag in ("fit_graphed", "fit_eager"):
+        distributed.train_rank(rank, world, device, str(work / tag))
+    _dp_step_rank(rank, world, device, workdir, "nccl1", ("float32",),
+                  timed_steps)
+    torch.backends.cudnn.deterministic = False
+    (work / "rank_step_ms.json").write_text(json.dumps(
+        _multistep_ms(device, workdir, timed_steps)))
+
+
+def _same(a, b) -> bool:
+    """Nested dicts and lists of arrays and scalars equal, bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same, a, b))
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
 def dp_phase(torch, device, image, atlas, roi, params, spec, cands,
              index) -> dict:
     """Phase 15: the multi-device paths on the one card (see the module
@@ -1742,11 +1829,28 @@ def dp_phase(torch, device, image, atlas, roi, params, spec, cands,
     # the ranks draw the global batch's masks and keep their rows
     train_idx, _ = train_split_stratified(index.labels, 0.25)
     rows = train_idx[:2 * DP_BATCH]
+    cap = min(DP_FIT_CAP, len(index))
+    small_index = TrainingIndex(index.volumes, index.centers[:cap],
+                                index.labels[:cap], index.atlas[:cap],
+                                index.subject_names)
+    t_idx, v_idx = train_split_stratified(small_index.labels, 0.25)
+
+    def fit_options(name):
+        return Options(experiment=name, mode="cuda0", batch_size=DP_BATCH,
+                       max_epochs=DP_FIT_EPOCHS, patience=5, train_split=0.25,
+                       net_verbose=1, load_weights=False, debug=False, seed=0)
+
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
     cudnn = torch.backends.cudnn
     flags = cudnn.enabled, cudnn.deterministic, cudnn.benchmark
     try:
         np.save(root / "stack.npy", index.volumes)
+        # (c)'s fits: the handoffs of a one-rank fit, graphed and eager
+        for tag, eager in (("fit_graphed", False), ("fit_eager", True)):
+            (root / tag).mkdir()
+            Trainer(fit_options(tag), spec, weights_path=str(root / tag),
+                    devices=[device]).hand_off(root / tag, small_index,
+                                               DP_FIT_EPOCHS, eager)
         torch.save({"params": init_params(spec,
                                           torch.Generator().manual_seed(3)),
                     "seed": 17,
@@ -1767,12 +1871,21 @@ def dp_phase(torch, device, image, atlas, roi, params, spec, cands,
         two_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         backend1 = distributed.launch(
-            _dp_step_rank, [device],
-            (str(root), "nccl1", ("float32",), DP_TIMED_STEPS), timeout=600)
+            _dp_nccl_rank, [device], (str(root), DP_TIMED_STEPS),
+            timeout=600)
         one_rank_s = time.perf_counter() - t0
-        # the one-process step, in this process
+        nccl_fits = {}
+        for tag in ("fit_graphed", "fit_eager"):
+            with open(root / tag / "rank0.pkl", "rb") as fh:
+                nccl_fits[tag] = pickle.load(fh)
+        rank_step_ms = json.loads((root / "rank_step_ms.json").read_text())
+        # the one-process step, in this process; then its multistep
+        # graphed, beside the NCCL rank's (cuDNN's default algorithms)
         cudnn.deterministic = True
         _dp_step_rank(0, 1, device, str(root), "plain", both, DP_TIMED_STEPS)
+        cudnn.deterministic = False
+        one_process_ms = _multistep_ms(device, root, DP_TIMED_STEPS,
+                                       ("graphed",))["graphed"]
         steps = {(tag, r, d): torch.load(root / f"step_{tag}_{r}_{d}.pt")
                  for tag, r, d in [("gloo2", 0, "float32"),
                                    ("gloo2", 1, "float32"),
@@ -1861,9 +1974,56 @@ def dp_phase(torch, device, image, atlas, roi, params, spec, cands,
           f"{2 * DP_BATCH}; one NCCL rank at {2 * DP_BATCH} "
           f"{ms['nccl1']:.4f} ms; one process at {2 * DP_BATCH} "
           f"{ms['plain']:.4f} ms. The launches took {two_s:.3f} s (two "
-          f"ranks) and {one_rank_s:.3f} s (one). Gloo stages every "
-          f"collective through the host, and both ranks share one card "
-          f"and the host's cores: no scaling is measured here")
+          f"ranks) and {one_rank_s:.3f} s (one, with (c)'s two fits). Gloo "
+          f"stages every collective through the host, and both ranks share "
+          f"one card and the host's cores: no scaling is measured here")
+
+    # (c) the NCCL rank's fit, graphed and eager
+    graphed, eager = nccl_fits["fit_graphed"], nccl_fits["fit_eager"]
+    steps1 = DP_FIT_EPOCHS * (len(t_idx) // DP_BATCH)
+    want1 = steps1 + DP_FIT_EPOCHS * -(-len(v_idx) // max(DP_BATCH, 2048))
+
+    def strip(history):
+        return [{k: v for k, v in h.items() if k != "dur"} for h in history]
+
+    same = strip(graphed["history"]) == strip(eager["history"]) and all(
+        _same(graphed["state"][part], eager["state"][part])
+        for part in ("params", "optimizer", "generator"))
+    step = graphed["step"]
+    print(f"fit in one NCCL rank (world 1, train_rank), {DP_FIT_EPOCHS} "
+          f"epochs of {steps1 // DP_FIT_EPOCHS} steps of {DP_BATCH}: "
+          f"graphed {json.dumps(step)}, eager {json.dumps(eager['step'])}; "
+          f"epoch seconds graphed "
+          f"{[round(h['dur'], 4) for h in graphed['history']]}, eager "
+          f"{[round(h['dur'], 4) for h in eager['history']]}; gather "
+          f"launches graphed {graphed['launches']}, eager "
+          f"{eager['launches']} (steps + eval batches: {want1}); histories, "
+          f"parameters, BN EMA, Adam state and generator bit-equal: {same}")
+    check(step["graphed"] and step["warmup_steps"] == 2
+          and step["replays"] == steps1 - 2 > 0 and step["capture_ms"] > 0,
+          f"the NCCL rank's fit replays its captured step: {step}")
+    check(not eager["step"]["graphed"],
+          f"the NCCL rank's _eager fit runs the plain loop: {eager['step']}")
+    check(graphed["launches"] == eager["launches"] == want1,
+          f"NCCL rank launches {graphed['launches']}, {eager['launches']} "
+          f"== {want1}")
+    check(same, "the NCCL rank's graphed fit == its eager fit, bit for bit")
+    g, e = rank_step_ms["graphed"], rank_step_ms["eager"]
+    print(f"rank step, one NCCL rank, {2 * DP_BATCH} rows, full width, "
+          f"float32 (CUDA events over a call of {DP_TIMED_STEPS} steps, "
+          f"cuDNN default algorithms; device ms, host enqueue ms per "
+          f"step): graphed {g['ms']:.4f}, {g['enqueue_ms']:.4f}; eager "
+          f"{e['ms']:.4f}, {e['enqueue_ms']:.4f}; capture "
+          f"{g['capture_ms']:.3f} ms; one process graphed "
+          f"{one_process_ms['ms']:.4f}, {one_process_ms['enqueue_ms']:.4f}")
+    out.update(dp_nccl_fit_step=step, dp_nccl_fit_launches=graphed["launches"],
+               dp_nccl_fit_steps=steps1,
+               dp_nccl_fit_epoch_s={"graphed": [h["dur"] for h in
+                                                graphed["history"]],
+                                    "eager": [h["dur"] for h in
+                                              eager["history"]]},
+               dp_nccl_rank_step_ms=rank_step_ms,
+               dp_one_process_graphed_step_ms=one_process_ms)
     out.update(dp_backends={"two_ranks_one_card": backend2,
                             "one_rank": backend1},
                dp_step_ms_two_ranks=ms["gloo2"],
@@ -1873,22 +2033,13 @@ def dp_phase(torch, device, image, atlas, roi, params, spec, cands,
                dp_step_one_process_float32_vs_float64=own)
 
     # (b) a short fit over two gloo ranks on the card
-    cap = min(DP_FIT_CAP, len(index))
-    small_index = TrainingIndex(index.volumes, index.centers[:cap],
-                                index.labels[:cap], index.atlas[:cap],
-                                index.subject_names)
-    t_idx, v_idx = train_split_stratified(small_index.labels, 0.25)
     steps = len(t_idx) // (2 * DP_BATCH)
     evals = [-(-(p.stop - p.start) // max(DP_BATCH, 2048))
              for p in shard_rows(len(v_idx), 2)]
     want = [DP_FIT_EPOCHS * (steps + e) for e in evals]
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_dpfit_"))
     try:
-        options = Options(experiment="dp", mode="cuda0", batch_size=DP_BATCH,
-                          max_epochs=DP_FIT_EPOCHS, patience=5,
-                          train_split=0.25, net_verbose=1, load_weights=False,
-                          debug=False, seed=0)
-        trainer = Trainer(options, spec, weights_path=str(root),
+        trainer = Trainer(fit_options("dp"), spec, weights_path=str(root),
                           devices=two)
         t0 = time.perf_counter()
         history = trainer.fit(small_index)
@@ -1904,15 +2055,19 @@ def dp_phase(torch, device, image, atlas, roi, params, spec, cands,
           f"({steps * 2 * DP_BATCH / history[-1]['dur']:.1f} samples/s in "
           f"the last), {fit_s:.3f} s with the ranks' start; gather "
           f"launches per rank {trainer.rank_launches} (steps + eval "
-          f"batches: {want}); files {files}, {len(lines)} history lines")
+          f"batches: {want}); steps per rank {trainer.rank_steps}; files "
+          f"{files}, {len(lines)} history lines")
     check(len(history) == DP_FIT_EPOCHS and bool(np.isfinite(losses).all())
           and losses[-1] < losses[0], f"finite, falling losses {losses}")
     check(trainer.rank_launches == want,
           f"launches per rank {trainer.rank_launches} == {want}")
+    check(not any(r["graphed"] for r in trainer.rank_steps),
+          f"the gloo ranks run eager steps: {trainer.rank_steps}")
     check(files == ["dp.pkl", "dp_history.jsonl", "dp_history.pkl",
                     "dp_state.pkl"] and len(lines) == DP_FIT_EPOCHS,
           f"only rank 0 wrote: {files}, {len(lines)} lines")
     out.update(dp_rank_launches=trainer.rank_launches,
+               dp_gloo_rank_steps=trainer.rank_steps,
                dp_fit_steps=DP_FIT_EPOCHS * steps,
                dp_fit_epoch_s=[h["dur"] for h in history])
 
@@ -2432,10 +2587,34 @@ def main() -> None:
     volume = prepare_gather_volume(_normalized_padded(image, device))
     c_d = torch.from_numpy(cands).to(device)
     v_d = torch.from_numpy(_atlas_vectors_host(atlas, cands)).to(device)
+    chunks = -(-len(cands) // DEFAULT_CHUNK)
+
+    def centers_pass():
+        forward_centers(net, volume, c_d, v_d, DEFAULT_CHUNK, False)
+
     with exact_float32():
-        ms = time_ms(torch, lambda: forward_centers(
-            net, volume, c_d, v_d, DEFAULT_CHUNK, False), iters=3)
-    print(f"forward_centers float32: {len(cands)} centers, {ms:.3f} ms")
+        ms, enqueue_ms = time_ms(torch, centers_pass, iters=3, host=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            centers_pass()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+        prof = profile_steps(torch, centers_pass, steps=2, parts=(),
+                             per_call=chunks)
+    forward_facts = {"ms": ms, "enqueue_ms": enqueue_ms, "wall_ms": wall_ms,
+                     "chunks": chunks,
+                     "kernels_per_chunk": prof["kernels_per_step"],
+                     "device_busy_share": prof["device_busy_share"],
+                     "profiled_device_ms": prof["device_ms_per_step"]
+                     * chunks}
+    print(f"forward_centers float32, {smi}: {len(cands)} centers in "
+          f"{chunks} chunks of {DEFAULT_CHUNK}: {ms:.3f} ms by CUDA events, "
+          f"{enqueue_ms:.3f} ms to enqueue, {wall_ms:.3f} ms wall (to a "
+          f"synchronize); torch.profiler over 2 passes: "
+          f"{prof['kernels_per_step']:.1f} kernels a chunk, "
+          f"{forward_facts['profiled_device_ms']:.3f} ms of device work a "
+          f"pass, busy share {prof['device_busy_share']:.4f}")
     del staged, staged_idx, volume, c_d, v_d
 
     # 10. bfloat16 vs float32 on every candidate, both engines
@@ -2500,6 +2679,7 @@ def main() -> None:
         "subjects_ms": uses["subjects"]["ms"],
         "prepare_ms": prepare_ms,
         "uses": uses,
+        "forward_centers": forward_facts,
         **train,
         **reg,
         **cli,

@@ -33,8 +33,10 @@ learning rate on the device.
 
 ``Trainer.fit`` runs its steps through :func:`make_train_multistep`, the
 counterpart of the JAX package's ``lax.scan`` of ``steps_per_call``
-steps: on the card, in one process, one step captured in a CUDA graph and
-replayed (:mod:`subcort_tpu_torch.utils.graphs`).
+steps: on the card, in one process or in a data-parallel rank whose group
+runs NCCL, one step captured in a CUDA graph and replayed
+(:mod:`subcort_tpu_torch.utils.graphs`), the rank's collectives inside
+the graph.
 
 History is JSONL plus the reference's ``<name>_history.pkl`` (epoch,
 train_loss, valid_loss, valid_accuracy, *_best flags, dur).
@@ -373,13 +375,15 @@ def make_train_multistep(net: TriPlanarNet, optimizer: DeviceAdam, volume,
     the K losses as a (K,) device tensor, reading nothing back.
 
     On the CPU, and on the card with the private ``_eager`` (the tests and
-    the smoke compare the two; data-parallel ranks, whose gloo collectives
-    a graph cannot capture, run so too), a plain loop of the step. On the
-    card otherwise, a :class:`~subcort_tpu_torch.utils.graphs.GraphedStep`:
-    two eager steps, then one step (gather, augmentation, forward, loss,
-    backward, Adam, BN EMA) captured in a CUDA graph with ``generator``
-    registered, replayed for every later step of every call, so exactly K
-    steps run per call. Each step reads its inputs and writes its loss
+    the smoke compare the two; ``Trainer.fit`` passes it in a
+    data-parallel rank whose gloo collectives a graph cannot capture), a
+    plain loop of the step. On the card otherwise, a
+    :class:`~subcort_tpu_torch.utils.graphs.GraphedStep`: two eager steps,
+    then one step (gather, augmentation, forward, loss, backward, Adam, BN
+    EMA; in an NCCL rank also the synced BN's and the gradients'
+    all-reduces) captured in a CUDA graph with ``generator`` registered,
+    replayed for every later step of every call, so exactly K steps run
+    per call. Each step reads its inputs and writes its loss
     through a device step counter. The graph bakes in the addresses of
     the parameters, the gradients, Adam's state and ``volume``'s storage,
     so it lives as long as the multistep object: :meth:`TrainMultistep.
@@ -547,8 +551,9 @@ class Trainer:
         td = str(options["train_dtype"]).strip()
         self.train_dtype = (torch.bfloat16 if td in ("bfloat16", "bf16")
                             else None)
-        # after a fit over several devices: each rank's gather launches
-        self.rank_launches = None
+        # after a fit over several devices: each rank's gather launches,
+        # and what ran its steps (train_rank's "step")
+        self.rank_launches = self.rank_steps = None
         # after a one-process fit on the card: its captured train step
         # (warm-up and replay counts, capture ms); None when it ran eagerly
         self.step_graph = None
@@ -634,21 +639,25 @@ class Trainer:
         """Train until max_epochs or early stopping; returns history list.
 
         Every train step goes through one :func:`make_train_multistep` made
-        for the fit, ``steps_per_call`` steps a call: in one process on the
-        card, two eager steps and then the replays of one captured step,
-        released when the fit ends (:attr:`step_graph` then says what
-        ran); on the CPU, and in a data-parallel rank, whose gloo
-        collectives a CUDA graph cannot capture, a plain loop, as on the
-        card with the private ``_eager`` (for comparisons). The losses
-        are read back once a call. With ``utils.runtime.
-        enable_nan_checks`` on, a NaN among them raises
+        for the fit, ``steps_per_call`` steps a call: on the card, in one
+        process or in a data-parallel rank whose group runs NCCL
+        (:func:`~subcort_tpu_torch.parallel.distributed.step_capturable`),
+        two eager steps and then the replays of one captured step, the
+        rank's collectives inside it, released when the fit ends
+        (:attr:`step_graph` then says what ran); on the CPU, and in a rank
+        whose gloo collectives a CUDA graph cannot capture, a plain loop,
+        as on the card with the private ``_eager`` (for comparisons; over
+        several devices every rank takes it). Every rank captures at the
+        same step, so its collectives meet their peers'. The losses are
+        read back once a call, after their mean over the ranks. With
+        ``utils.runtime.enable_nan_checks`` on, a NaN among them raises
         ``FloatingPointError`` naming the first step that had one, after
         the call: up to ``steps_per_call - 1`` steps later than a check
         before each step's backward would."""
         opts = self.options
         max_epochs = max_epochs if max_epochs is not None else opts["max_epochs"]
         if len(self.devices) > 1:
-            return self._fit_ranks(index, max_epochs)
+            return self._fit_ranks(index, max_epochs, _eager)
         patience = opts["patience"]
         batch_size = opts["batch_size"]
         dp = sync_bn.active()
@@ -686,7 +695,9 @@ class Trainer:
             self.net, self.optimizer, volume, self.generator, patch,
             self.steps_per_call, augment=self.augment,
             intensity_augment=self.intensity_augment,
-            compute_dtype=self.train_dtype, _eager=_eager or dp is not None)
+            compute_dtype=self.train_dtype,
+            _eager=_eager or (dp is not None
+                              and not distributed.step_capturable(dev)))
         with multistep:
             while self.epoch < max_epochs:
                 self.epoch += 1
@@ -800,23 +811,35 @@ class Trainer:
         self.step_graph = multistep.graphed
         return self.history
 
-    def _fit_ranks(self, index: TrainingIndex, max_epochs: int) -> list:
+    def hand_off(self, workdir: Path, index: TrainingIndex, max_epochs: int,
+                 _eager: bool = False) -> None:
+        """Write into ``workdir`` what each rank of a fit of this trainer
+        reads (:func:`~subcort_tpu_torch.parallel.distributed.train_rank`):
+        the index as ``.npy`` files the ranks memory-map, this trainer's
+        options, state and history, and whether the ranks run the plain
+        loop."""
+        distributed.write_handoff(Path(workdir), index, {
+            "options": self.options, "spec": self.spec,
+            "weights_path": self.weights_path, "config": self._config,
+            "state": self.state(), "history": self.history,
+            "max_epochs": max_epochs, "eager": _eager})
+
+    def _fit_ranks(self, index: TrainingIndex, max_epochs: int,
+                   _eager: bool) -> list:
         """:meth:`fit` over ``self.devices``, one spawned rank each: hand
-        the index (``.npy`` files the ranks memory-map) and this trainer's
-        state to the ranks, join them, then take rank 0's final state and
-        history. The join returns as soon as the last rank exits; it waits
-        no longer than ``distributed.FIT_TIMEOUT_S`` (None, the default:
-        as long as the fit runs)."""
-        if self.options["net_verbose"]:
+        the index and this trainer's state to the ranks, join them, then
+        take rank 0's final state and history, and every rank's launches
+        and what ran its steps (:attr:`rank_launches`,
+        :attr:`rank_steps`). The join returns as soon as the last rank
+        exits; it waits no longer than ``distributed.FIT_TIMEOUT_S``
+        (None, the default: as long as the fit runs)."""
+        verbose = self.options["net_verbose"]
+        if verbose:
             print(f"--> data-parallel fit: {len(self.devices)} ranks on "
                   f"{[str(d) for d in self.devices]}, backend "
                   f"{distributed.backend_for(self.devices)}")
         with tempfile.TemporaryDirectory(prefix="subcort_ranks_") as work:
-            distributed.write_handoff(Path(work), index, {
-                "options": self.options, "spec": self.spec,
-                "weights_path": self.weights_path, "config": self._config,
-                "state": self.state(), "history": self.history,
-                "max_epochs": max_epochs})
+            self.hand_off(Path(work), index, max_epochs, _eager)
             distributed.launch(distributed.train_rank, self.devices, (work,),
                                timeout=distributed.FIT_TIMEOUT_S)
             results = []
@@ -826,4 +849,8 @@ class Trainer:
         self._load_state(results[0]["state"])
         self.history = results[0]["history"]
         self.rank_launches = [r["launches"] for r in results]
+        self.rank_steps = [r["step"] for r in results]
+        if verbose:
+            for rank, step in enumerate(self.rank_steps):
+                print(f"    rank {rank}'s steps: {json.dumps(step)}")
         return self.history

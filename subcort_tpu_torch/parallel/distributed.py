@@ -16,8 +16,10 @@ The trainer's ranks (:func:`launch`): ``Trainer.fit`` over more than one
 device starts one process per device with ``torch.multiprocessing``'s
 spawn start method, each in a process group of its own making (NCCL over
 distinct CUDA devices, gloo otherwise), and joins them. A rank that fails
-stops the others and fails the launch; a rank that hangs in a collective
-times out there (``COLLECTIVE_TIMEOUT_S``).
+exits at once and fails the launch, and the others are stopped; a rank
+that hangs in an eager collective times out there
+(``COLLECTIVE_TIMEOUT_S``). A rank whose group runs NCCL replays one
+captured train step, as one process does (:func:`step_capturable`).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import pickle
 import socket
 import sys
 import time
+import traceback
 from multiprocessing.connection import wait
 from pathlib import Path
 from typing import Optional, Sequence
@@ -142,12 +145,34 @@ def backend_for(devices: Sequence[torch.device]) -> str:
     return "gloo"
 
 
+def step_capturable(device: torch.device) -> bool:
+    """Whether a data-parallel rank on ``device`` can capture its train
+    step in a CUDA graph: the device is a card and the default group's
+    backend is NCCL, whose collectives a capture records. Gloo's cannot be
+    captured, so its ranks (the CPU, or ranks sharing a card:
+    :func:`backend_for`) run the plain loop."""
+    return (torch.device(device).type == "cuda" and dist.is_initialized()
+            and dist.get_backend() == "nccl")
+
+
+def _exit(code: int) -> None:
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
 def _rank_entry(target, rank: int, world: int, init_method: str,
                 backend: str, device: str, threads: int, cudnn_flags,
                 args) -> None:
     """A rank's process: its device, threads and cuDNN flags, the group,
     then ``target(rank, world, device, *args)`` inside
-    :func:`~subcort_tpu_torch.parallel.sync_bn.data_parallel`."""
+    :func:`~subcort_tpu_torch.parallel.sync_bn.data_parallel`.
+
+    A target that raises ends the process at once with code 1, its
+    traceback printed, without leaving the group: leaving waits for the
+    rank's collectives, which a peer that no longer joins them (a replayed
+    NCCL collective is not timed out) would hold for ever. The launcher's
+    join sees the code and stops the other ranks."""
     torch.set_num_threads(threads)
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -159,14 +184,14 @@ def _rank_entry(target, rank: int, world: int, init_method: str,
     try:
         with sync_bn.data_parallel(rank, world):
             target(rank, world, dev, *args)
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        _exit(1)
+    dist.destroy_process_group()
     # the rank's work is done and in its files: exit now, not after the
     # interpreter's teardown of torch (0.7 s on an idle CPU, seconds under
     # load), which the launcher's join would wait out
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(0)
+    _exit(0)
 
 
 def join(procs: Sequence, timeout: Optional[float] = None) -> None:
@@ -260,9 +285,13 @@ def write_handoff(workdir: Path, index, trainer_state: dict) -> None:
 def train_rank(rank: int, world: int, device: torch.device,
                workdir: str) -> None:
     """One rank of ``Trainer.fit`` over several devices: rebuild the
-    trainer on ``device`` from the handoff, fit, and leave the rank's
-    result (rank 0: history and final state; every rank: its gather
-    launches) in ``workdir``."""
+    trainer on ``device`` from the handoff, fit (graphed where
+    :func:`step_capturable`, unless the handoff asks for the plain loop),
+    and leave the rank's result in ``workdir``: every rank's gather
+    launches and what ran its steps (``step``: ``graphed``, the
+    ``warmup_steps``, ``replays`` and ``capture_ms`` of its captured step,
+    or zeros and None for the plain loop); rank 0's history and final
+    state."""
     from subcort_tpu_torch.engine.data import TrainingIndex
     from subcort_tpu_torch.engine.train import Trainer
     from subcort_tpu_torch.ops import gather_kernel
@@ -276,8 +305,13 @@ def train_rank(rank: int, world: int, device: torch.device,
                           hand["subject_names"])
     trainer = Trainer.from_handoff(hand, device)
     gather_kernel.LAUNCHES = 0
-    history = trainer.fit(index, hand["max_epochs"])
-    result = {"launches": gather_kernel.LAUNCHES}
+    history = trainer.fit(index, hand["max_epochs"], _eager=hand["eager"])
+    graph = trainer.step_graph
+    result = {"launches": gather_kernel.LAUNCHES, "step": {
+        "graphed": graph is not None,
+        "warmup_steps": graph.warmup_calls if graph else 0,
+        "replays": graph.replays if graph else 0,
+        "capture_ms": graph.capture_ms if graph else None}}
     if rank == 0:
         result.update(history=history, state=trainer.state())
     tmp = work / f"rank{rank}.tmp"

@@ -15,6 +15,13 @@ runs one process per device, so it inserts them itself, here:
   flat bucket, divided by it (the mean cross-entropy of the global batch);
 - :func:`broadcast_module`: rank 0's parameters and buffers to every rank.
 
+What runs inside the step reads nothing back to the host, takes no host
+input but shapes (the BN count is host arithmetic) and allocates its
+buffers (the flat gradient bucket) inside the step, so an NCCL rank
+captures its step, collectives included, in a CUDA graph and replays it
+(``engine/train.py::make_train_multistep``); gloo's collectives cannot be
+captured, so its ranks run the step eagerly.
+
 The trainer turns this on for one rank's process with
 :func:`data_parallel`; nothing here acts outside that block, so a process
 that joined a group for something else (the multi-process folder sweep of

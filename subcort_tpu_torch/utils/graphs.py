@@ -20,6 +20,13 @@ failed capture or replay raises; nothing falls back to eager calls.
 :meth:`GraphedStep.close` waits for the replays and hands the graph's
 memory pool back to the caching allocator.
 
+A step may hold NCCL collectives (a data-parallel rank's train step): the
+capture records them on the NCCL stream it forks from the capture stream,
+and each replay runs them. Their communicator must exist before the
+capture, which the warm-up calls' collectives ensure at the latest, and
+every rank must capture at the same call, which the fixed warm-up count
+gives ranks that run the same calls.
+
 A kernel wrapper counts its launches through :func:`count_launch`, so a
 launch recorded by a capture counts once per replay, not at the capture.
 """

@@ -8,7 +8,9 @@ plain loop (float32, bfloat16, patch 40, a learning-rate schedule, a
 resume, a NaN), ``exact_float32`` under two threads doing card work, and the
 multi-device paths on the one card (the patch engine over two entries of
 ``cuda:0``; the synced step over one NCCL rank and over two gloo ranks,
-whose rank functions come from tests/test_torch_distributed.py), and the
+whose rank functions come from tests/test_torch_distributed.py; a world-1
+NCCL rank's graphed fit against its eager fit, and a rank whose capture
+fails, from tests/test_torch_rank_multistep.py), and the
 headline benchmark's ``run`` on the card against the CPU (its phantom from
 tests/test_torch_bench_scan.py); each skips without a CUDA device.
 
@@ -24,6 +26,7 @@ the train step.
 """
 
 import dataclasses
+import pickle
 
 import numpy as np
 import pytest
@@ -1020,6 +1023,87 @@ def test_graphed_fit_raises_on_a_nan_loss(cuda_device, tmp_path):
     finally:
         runtime.NAN_CHECKS = False
         torch.autograd.set_detect_anomaly(False)
+
+
+def _rank_fit(path):
+    with open(path / "rank0.pkl", "rb") as fh:
+        return pickle.load(fh)
+
+
+def _same(a, b) -> bool:
+    """Nested dicts and lists of arrays and scalars equal, bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same, a, b))
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
+@pytest.mark.cuda
+def test_nccl_rank_graphed_fit_equals_eager_fit(cuda_device,
+                                                deterministic_cudnn,
+                                                tmp_path):
+    """One NCCL rank (world 1) runs Trainer.fit as a fit over several
+    cards runs each rank (distributed.train_rank): graphed by default, 2
+    warm-up steps and the rest replayed with the gradient all-reduce
+    inside the graph, and bit-equal to the same rank's _eager fit: the
+    history, the parameters and BN EMA, Adam's state and the step
+    generator's; the kernel launched once per step and per eval batch."""
+    from subcort_tpu_torch.engine import train_split_stratified
+    from subcort_tpu_torch.parallel import distributed
+    from test_torch_rank_multistep import train_ranks
+
+    index = _card_index()
+    spec = dataclasses.replace(NARROW, dropout_conv=0.3, dropout_fc=0.3)
+    work = {eager: tmp_path / f"eager{eager}" for eager in (False, True)}
+    for eager, path in work.items():
+        path.mkdir()
+        Trainer(_card_options(f"nccl{eager}"), spec=spec, augment=True,
+                steps_per_call=4, weights_path=str(path / "nets"),
+                devices=[cuda_device]).hand_off(path, index, 3, eager)
+    assert distributed.launch(train_ranks, [cuda_device],
+                              ([str(p) for p in work.values()],),
+                              timeout=150) == "nccl"
+    graphed, eager = _rank_fit(work[False]), _rank_fit(work[True])
+    t_idx, v_idx = train_split_stratified(index.labels, 0.25)
+    steps = 3 * (len(t_idx) // 32)
+    assert graphed["step"]["graphed"] and graphed["step"]["capture_ms"] > 0
+    assert (graphed["step"]["warmup_steps"],
+            graphed["step"]["replays"]) == (2, steps - 2)
+    assert eager["step"] == {"graphed": False, "warmup_steps": 0,
+                             "replays": 0, "capture_ms": None}
+    assert _strip(graphed["history"]) == _strip(eager["history"])
+    for part in ("params", "optimizer", "generator"):
+        assert _same(graphed["state"][part], eager["state"][part]), part
+    evals = 3 * -(-len(v_idx) // 2048)
+    assert graphed["launches"] == eager["launches"] == steps + evals
+
+
+@pytest.mark.cuda
+def test_nccl_rank_whose_capture_fails_fails_the_launch(cuda_device,
+                                                        tmp_path):
+    """An NCCL rank whose step reads a value back: its two eager warm-up
+    steps run, the capture raises, and the rank fails the launch at once
+    (well inside the launcher's bound), with no fit finished: nothing
+    falls back to the plain loop."""
+    import time
+
+    from subcort_tpu_torch.parallel import distributed
+    from subcort_tpu_torch.utils.graphs import WARMUP
+    from test_torch_rank_multistep import failing_capture_rank
+
+    Trainer(_card_options("fails"), spec=NARROW, steps_per_call=4,
+            weights_path=str(tmp_path / "nets"),
+            devices=[cuda_device]).hand_off(tmp_path, _card_index(), 3)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match=r"ranks \[0\] of 1"):
+        distributed.launch(failing_capture_rank, [cuda_device],
+                           (str(tmp_path),), timeout=150)
+    assert time.monotonic() - t0 < 75
+    assert int((tmp_path / "calls").read_text()) == WARMUP + 1
+    assert not (tmp_path / "rank0.pkl").exists()
 
 
 @pytest.mark.cuda

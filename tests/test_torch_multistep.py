@@ -108,15 +108,22 @@ def test_multistep_matches_jax(jax_params, k):
     assert losses.shape == (k,) and losses.dtype == torch.float32
     np.testing.assert_allclose(losses.numpy(), np.asarray(jlosses),
                                rtol=1e-4)
+    assert_state_matches_jax(
+        net.state_dict(),
+        {name: optimizer.state[p] for name, p in net.named_parameters()},
+        jp, jstate, k)
 
-    adam = jstate[0]
-    assert int(adam.count) == k
-    mu = params_from_jax(jax.tree_util.tree_map(np.asarray, adam.mu), SPEC)
-    nu = params_from_jax(jax.tree_util.tree_map(np.asarray, adam.nu), SPEC)
+
+def assert_state_matches_jax(state, adam, jp, jstate, k):
+    """The port's state dict and Adam state by parameter name (``adam``)
+    after K steps against the JAX multistep's params ``jp`` and optimizer
+    state ``jstate``, at test_multistep_matches_jax's bounds."""
+    jadam = jstate[0]
+    assert int(jadam.count) == k
+    mu = params_from_jax(jax.tree_util.tree_map(np.asarray, jadam.mu), SPEC)
+    nu = params_from_jax(jax.tree_util.tree_map(np.asarray, jadam.nu), SPEC)
     after = params_from_jax(jp, SPEC)
-    state = net.state_dict()
-    for name, p in net.named_parameters():
-        st = optimizer.state[p]
+    for name, st in adam.items():
         assert float(st["step"]) == k
         # the moments on the gradient's scale: mu / (1 - b1^k) is a mean
         # gradient, sqrt(nu / (1 - b2^k)) a root mean square one
