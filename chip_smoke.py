@@ -191,9 +191,15 @@ and the exit code is non-zero:
        multistep on the step's 256 rows, 20 steps a call, graphed and
        eager, and one process's graphed: ms per step by CUDA events beside
        the host's enqueue ms. The two gloo ranks of (b)'s fit report eager
-       steps;
+       steps. Then one NCCL rank whose step reads a value back: its two
+       eager warm-up steps run, the capture raises, and the launch fails
+       (RuntimeError naming rank 0) within 75 s, with no fit finished;
    (d) Trainer(data_parallel = 2) raises ValueError with one card, and
        _data_parallel_devices clamps to [cuda:0] with its note;
+   (e) every launch of the phase (the 2-rank gloo step, the NCCL rank, the
+       failing capture and (b)'s fit) went through the launcher's own
+       store: each launch's rendezvous port and its seconds from launch to
+       its return (or raise), beside the card's name and power limit;
 16. the quality and training benchmarks of subcort_tpu_torch/bench/, each
    through its main() or run() on the card, each with the gather launch
    count set to 0 just before it and read just after (launches >= the
@@ -232,6 +238,7 @@ and the exit code is non-zero:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1311,7 +1318,6 @@ def run_cli(*argv) -> tuple:
     """``cli.main(argv)`` in this process, with the gather launch count set
     to 0 just before it; its stdout is echoed. Returns (stdout, launches,
     seconds); a non-zero return code fails the phase."""
-    import contextlib
     import io
 
     from subcort_tpu_torch import cli
@@ -1745,6 +1751,59 @@ def _dp_nccl_rank(rank, world, device, workdir, timed_steps):
         _multistep_ms(device, workdir, timed_steps)))
 
 
+def _dp_failing_capture_rank(rank, world, device, workdir):
+    """Phase 15(c)'s NCCL rank whose step reads a value back, which the
+    eager warm-up steps run and a capture refuses:
+    distributed.train_rank on ``workdir``'s handoff, each call of the
+    step adding one to ``workdir``'s ``calls`` file."""
+    from subcort_tpu_torch.engine import train
+    from subcort_tpu_torch.parallel import distributed
+
+    calls = Path(workdir) / "calls"
+    real = train.TrainMultistep.step
+
+    def step(self):
+        calls.write_text(str(int(calls.read_text()) + 1
+                             if calls.exists() else 1))
+        real(self)
+        float(self.losses.sum())
+
+    train.TrainMultistep.step = step
+    distributed.train_rank(rank, world, device, workdir)
+
+
+@contextlib.contextmanager
+def recorded_launches(distributed):
+    """Inside the block, every ``distributed.launch`` (also those that
+    ``Trainer.fit`` makes) appends to the list it yields its target, ranks,
+    the port of the store that the launcher hosted (None if it hosted
+    none) and its seconds from the call to its return or raise."""
+    launches = []
+    launch, store = distributed.launch, distributed._rendezvous_store
+
+    def recorded_launch(target, devices, *args, **kwargs):
+        entry = {"target": target.__name__, "ranks": len(devices),
+                 "port": None}
+        launches.append(entry)
+        t0 = time.perf_counter()
+        try:
+            return launch(target, devices, *args, **kwargs)
+        finally:
+            entry["s"] = time.perf_counter() - t0
+
+    def recorded_store(world):
+        hosted = store(world)
+        launches[-1]["port"] = hosted.port
+        return hosted
+
+    distributed.launch = recorded_launch
+    distributed._rendezvous_store = recorded_store
+    try:
+        yield launches
+    finally:
+        distributed.launch, distributed._rendezvous_store = launch, store
+
+
 def _same(a, b) -> bool:
     """Nested dicts and lists of arrays and scalars equal, bit for bit."""
     if isinstance(a, dict):
@@ -1756,11 +1815,34 @@ def _same(a, b) -> bool:
     return a == b
 
 
-def dp_phase(torch, device, image, atlas, roi, params, spec, cands,
+def dp_phase(torch, device, smi, image, atlas, roi, params, spec, cands,
              index) -> dict:
     """Phase 15: the multi-device paths on the one card (see the module
-    docstring)."""
-    import contextlib
+    docstring), every launch recorded for (e)."""
+    from subcort_tpu_torch.parallel import distributed
+
+    t_phase = time.perf_counter()
+    with recorded_launches(distributed) as launches:
+        out = dp_paths(torch, device, image, atlas, roi, params, spec, cands,
+                       index)
+    # (e) every launch through the launcher's own store
+    for entry in launches:
+        print(f"launch of {entry['target']} over {entry['ranks']} rank(s): "
+              f"rendezvous port {entry['port']} (the launcher's store), "
+              f"{entry['s']:.3f} s from launch to its return ({smi})")
+    check([e["target"] for e in launches] == [
+        "_dp_step_rank", "_dp_nccl_rank", "_dp_failing_capture_rank",
+        "train_rank"] and all(e["port"] for e in launches),
+          f"every launch hosted its own store: {launches}")
+    out["dp_launches"] = launches
+    out["dp_phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 15: {out['dp_phase_s']:.3f} s")
+    return out
+
+
+def dp_paths(torch, device, image, atlas, roi, params, spec, cands,
+             index) -> dict:
+    """Phase 15 (a) to (d)."""
     import io
 
     from subcort_tpu_torch import (Options, Trainer, TrainingIndex,
@@ -1772,9 +1854,9 @@ def dp_phase(torch, device, image, atlas, roi, params, spec, cands,
     from subcort_tpu_torch.ops import gather_kernel
     from subcort_tpu_torch.parallel import distributed
     from subcort_tpu_torch.parallel.mesh import shard_rows
+    from subcort_tpu_torch.utils.graphs import WARMUP
 
     out = {}
-    t_phase = time.perf_counter()
     two = [device, device]
     sel = tuple(cands.T)
 
@@ -1845,8 +1927,10 @@ def dp_phase(torch, device, image, atlas, roi, params, spec, cands,
     flags = cudnn.enabled, cudnn.deterministic, cudnn.benchmark
     try:
         np.save(root / "stack.npy", index.volumes)
-        # (c)'s fits: the handoffs of a one-rank fit, graphed and eager
-        for tag, eager in (("fit_graphed", False), ("fit_eager", True)):
+        # (c)'s fits: the handoffs of a one-rank fit, graphed and eager,
+        # and of the fit whose capture fails
+        for tag, eager in (("fit_graphed", False), ("fit_eager", True),
+                           ("fit_fails", False)):
             (root / tag).mkdir()
             Trainer(fit_options(tag), spec, weights_path=str(root / tag),
                     devices=[device]).hand_off(root / tag, small_index,
@@ -1874,6 +1958,16 @@ def dp_phase(torch, device, image, atlas, roi, params, spec, cands,
             _dp_nccl_rank, [device], (str(root), DP_TIMED_STEPS),
             timeout=600)
         one_rank_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            distributed.launch(_dp_failing_capture_rank, [device],
+                               (str(root / "fit_fails"),), timeout=600)
+            failed = "the launch returned"
+        except RuntimeError as e:
+            failed = str(e)
+        fails_s = time.perf_counter() - t0
+        fails_calls = int((root / "fit_fails" / "calls").read_text())
+        fails_finished = (root / "fit_fails" / "rank0.pkl").exists()
         nccl_fits = {}
         for tag in ("fit_graphed", "fit_eager"):
             with open(root / tag / "rank0.pkl", "rb") as fh:
@@ -2008,6 +2102,13 @@ def dp_phase(torch, device, image, atlas, roi, params, spec, cands,
           f"NCCL rank launches {graphed['launches']}, {eager['launches']} "
           f"== {want1}")
     check(same, "the NCCL rank's graphed fit == its eager fit, bit for bit")
+    print(f"NCCL rank whose step reads a value back: the launch raised "
+          f"{failed!r} after {fails_s:.3f} s; the step ran {fails_calls} "
+          f"time(s) ({WARMUP} warm-up steps and the refused capture); a fit "
+          f"finished: {fails_finished}")
+    check(failed.startswith("ranks [0] of 1") and fails_s < 75
+          and fails_calls == WARMUP + 1 and not fails_finished,
+          "an NCCL rank whose capture fails fails its launch at once")
     g, e = rank_step_ms["graphed"], rank_step_ms["eager"]
     print(f"rank step, one NCCL rank, {2 * DP_BATCH} rows, full width, "
           f"float32 (CUDA events over a call of {DP_TIMED_STEPS} steps, "
@@ -2092,15 +2193,12 @@ def dp_phase(torch, device, image, atlas, roi, params, spec, cands,
         print(f"refusals: Trainer(data_parallel=2) raises ValueError; "
               f"inference clamps to {got} with the note "
               f"{note.getvalue().strip()!r}")
-    out["dp_phase_s"] = time.perf_counter() - t_phase
-    print(f"phase 15: {out['dp_phase_s']:.3f} s")
     return out
 
 
 def bench_phase(torch, kind: str) -> dict:
     """Phase 16: the four benchmarks of ``subcort_tpu_torch/bench/`` through
     their ``main`` / ``run`` on the card (see the module docstring)."""
-    import contextlib
     import io
     from unittest import mock
 
@@ -2212,7 +2310,6 @@ def scan_phase(torch, device, kind, image, atlas, roi, rng, params,
     through its ``run`` on the card (see the module docstring). ``rng`` is
     the generator that built the scan, so the oracle draws the original's
     voxels."""
-    import contextlib
     import io
 
     from subcort_tpu_torch.bench import scan
@@ -2651,7 +2748,7 @@ def main() -> None:
         shutil.rmtree(work)
 
     # 15. the multi-device paths on the one card
-    dp = dp_phase(torch, device, image, atlas, roi, params, spec, cands,
+    dp = dp_phase(torch, device, smi, image, atlas, roi, params, spec, cands,
                   train_index)
 
     # 16. the quality and training benchmarks

@@ -15,19 +15,21 @@ the world is larger than 1), with no traffic between hosts on the hot path:
 The trainer's ranks (:func:`launch`): ``Trainer.fit`` over more than one
 device starts one process per device with ``torch.multiprocessing``'s
 spawn start method, each in a process group of its own making (NCCL over
-distinct CUDA devices, gloo otherwise), and joins them. A rank that fails
-exits at once and fails the launch, and the others are stopped; a rank
-that hangs in an eager collective times out there
+distinct CUDA devices, gloo otherwise), and joins them. The launcher hosts
+the group's store on a port the OS picks as it binds, so no rank meets a
+port that another process took, nor joins another launch's group. A rank
+that fails exits at once and fails the launch, and the others are
+stopped; a rank that hangs in an eager collective times out there
 (``COLLECTIVE_TIMEOUT_S``). A rank whose group runs NCCL replays one
 captured train step, as one process does (:func:`step_capturable`).
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 import pickle
-import socket
 import sys
 import time
 import traceback
@@ -90,6 +92,15 @@ def initialize(coordinator_address: Optional[str] = None,
     dist.init_process_group("gloo", init_method=f"tcp://{coordinator_address}",
                             world_size=num_processes, rank=process_id,
                             timeout=_timeout())
+    atexit.register(_leave)
+
+
+def _leave() -> None:
+    """Leave the group before the interpreter's teardown: a process that
+    exits with its gloo group up aborts there now and then (``terminate
+    called without an active exception``, after its work is done)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def process_count() -> int:
@@ -128,13 +139,6 @@ def all_hosts_mean(value: float) -> float:
 
 
 # ----------------------------------------------------------------- the ranks
-def free_port() -> int:
-    """A TCP port on localhost that nothing listens on now."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def backend_for(devices: Sequence[torch.device]) -> str:
     """NCCL over distinct CUDA devices; gloo otherwise (the CPU, or ranks
     sharing a card, which NCCL refuses as a duplicate GPU)."""
@@ -161,12 +165,21 @@ def _exit(code: int) -> None:
     os._exit(code)
 
 
-def _rank_entry(target, rank: int, world: int, init_method: str,
+def _rendezvous_store(world: int) -> dist.TCPStore:
+    """The group's store, hosted in the launcher's process on a port that
+    the OS picks as it binds (port 0): no other process can take the port
+    between the pick and the bind."""
+    return dist.TCPStore("127.0.0.1", 0, world, is_master=True,
+                         wait_for_workers=False, timeout=_timeout())
+
+
+def _rank_entry(target, rank: int, world: int, rendezvous: tuple,
                 backend: str, device: str, threads: int, cudnn_flags,
                 args) -> None:
-    """A rank's process: its device, threads and cuDNN flags, the group,
-    then ``target(rank, world, device, *args)`` inside
-    :func:`~subcort_tpu_torch.parallel.sync_bn.data_parallel`.
+    """A rank's process: its device, threads and cuDNN flags, the group
+    on the launcher's store (``rendezvous``: its host, its port and the
+    launcher's timeout), then ``target(rank, world, device, *args)``
+    inside :func:`~subcort_tpu_torch.parallel.sync_bn.data_parallel`.
 
     A target that raises ends the process at once with code 1, its
     traceback printed, without leaving the group: leaving waits for the
@@ -179,8 +192,10 @@ def _rank_entry(target, rank: int, world: int, init_method: str,
         torch.cuda.set_device(dev)
     cudnn = torch.backends.cudnn
     cudnn.enabled, cudnn.deterministic, cudnn.benchmark = cudnn_flags
-    dist.init_process_group(backend, init_method=init_method,
-                            world_size=world, rank=rank, timeout=_timeout())
+    host, port, timeout = rendezvous
+    store = dist.TCPStore(host, port, world, is_master=False, timeout=timeout)
+    dist.init_process_group(backend, store=store, world_size=world,
+                            rank=rank, timeout=timeout)
     try:
         with sync_bn.data_parallel(rank, world):
             target(rank, world, dev, *args)
@@ -234,7 +249,9 @@ def launch(target, devices: Sequence[torch.device], args: tuple = (),
     """Run ``target(rank, world, device, *args)`` in one spawned process
     per entry of ``devices`` (an entry may repeat), joined in a process
     group over :func:`backend_for`'s backend, which it returns.
-    ``target`` must be importable by name.
+    ``target`` must be importable by name. The group's store lives in this
+    process (:func:`_rendezvous_store`) from before the first rank starts
+    until the ranks are stopped; a rank that cannot reach it fails.
     Every rank gets the caller's cuDNN flags and an equal share of its
     threads. The ranks are joined by :func:`join`: once one exits
     non-zero the others get ``FAILED_GRACE_S`` to exit on their own (a
@@ -245,13 +262,14 @@ def launch(target, devices: Sequence[torch.device], args: tuple = (),
 
     world = len(devices)
     backend = backend_for(devices)
-    init_method = f"tcp://127.0.0.1:{free_port()}"
     threads = max(1, torch.get_num_threads() // world)
     cudnn = torch.backends.cudnn
     flags = cudnn.enabled, cudnn.deterministic, cudnn.benchmark
+    store = _rendezvous_store(world)
+    rendezvous = store.host, store.port, _timeout()
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_entry, args=(
-        target, rank, world, init_method, backend, str(dev), threads, flags,
+        target, rank, world, rendezvous, backend, str(dev), threads, flags,
         args)) for rank, dev in enumerate(devices)]
     for p in procs:
         p.start()

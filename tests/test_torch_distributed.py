@@ -2,13 +2,15 @@
 data-parallel train step (``parallel/sync_bn.py``), on the CPU over gloo.
 
 Two ranks run in processes of their own, started by the port's launcher
-(``distributed.launch``, the spawn start method, a timeout on every wait)
-or, for the multi-host group, as two ``python -c`` processes, as
-tests/test_distributed.py starts the JAX package's. The rank functions
-live in this module, so it imports no jax at module level: a spawned rank
-imports it, and the test that reads a rank's modules holds that rank to
-no ``jax`` and no ``subcort_tpu``. The card's versions of these tests are
-in tests/test_torch_cuda.py, which imports the rank functions from here.
+(``distributed.launch``, the spawn start method, a timeout on every wait,
+the group's store hosted by the launcher) or, for the multi-host group, as
+two ``python -c`` processes, as tests/test_distributed.py starts the JAX
+package's, on a coordinator port that the test holds until both exit.
+The rank functions live in this module, so it imports no jax at module
+level: a spawned rank imports it, and the test that reads a rank's
+modules holds that rank to no ``jax`` and no ``subcort_tpu``. The card's
+versions of these tests are in tests/test_torch_cuda.py, which imports
+the rank functions from here.
 
 Tolerances: a 2-rank step against the one-process step on the global
 batch (the same rows, draws and parameters) differs in summation order
@@ -23,6 +25,8 @@ one-process bfloat16 backward's distance from float32. A 2-rank ``fit`` against 
 valid_accuracy equal (``test_trainer_epoch_matches_jax_trainer``).
 """
 
+import contextlib
+import errno
 import json
 import os
 import socket
@@ -30,11 +34,14 @@ import subprocess
 import sys
 import textwrap
 import time
+import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from subcort_tpu_torch.config import Options
 from subcort_tpu_torch.engine import Trainer, TrainingIndex
@@ -326,6 +333,107 @@ def test_a_failing_rank_fails_the_launch():
     assert time.monotonic() - t0 < WAIT_S / 2
 
 
+# ------------------------------------------------------------ the rendezvous
+LAUNCHES = 4    # 2-rank launches started at once
+
+
+def _sum_rank(rank, world, device, workdir, launch):
+    """All-reduce a value unique to ``launch`` and this rank; keep the
+    sum."""
+    t = torch.tensor([100.0 * (launch + 1) + rank], dtype=torch.float64)
+    dist.all_reduce(t)
+    (Path(workdir) / f"sum{rank}").write_text(repr(float(t[0])))
+
+
+def test_concurrent_launches_each_keep_their_own_group(tmp_path):
+    """``LAUNCHES`` 2-rank launches started together from as many threads:
+    each returns ``gloo`` and each rank's sum is its own launch's, so no
+    rank joined another launch's group."""
+    works = [tmp_path / f"launch{k}" for k in range(LAUNCHES)]
+    for work in works:
+        work.mkdir()
+    with ThreadPoolExecutor(LAUNCHES) as pool:
+        futures = [pool.submit(_launch, _sum_rank, [CPU, CPU], str(work), k)
+                   for k, work in enumerate(works)]
+        assert [f.result() for f in futures] == ["gloo"] * LAUNCHES
+    for k, work in enumerate(works):
+        want = 2 * 100.0 * (k + 1) + 1
+        assert [float((work / f"sum{r}").read_text())
+                for r in range(2)] == [want, want], k
+
+
+def _bind_errno(port: int) -> int:
+    """0 if a plain bind to ``port`` on localhost succeeds, else its
+    errno."""
+    with socket.socket() as s:
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError as e:
+            return e.errno
+    return 0
+
+
+def _port_rank(rank, world, device, workdir):
+    """Try to bind the launcher's rendezvous port as the rank starts and
+    again once both ranks are past a collective; keep both errnos."""
+    port = int((Path(workdir) / "port").read_text())
+    first = _bind_errno(port)
+    sync_bn.all_reduce_sum(torch.ones(1))
+    (Path(workdir) / f"bind{rank}").write_text(
+        json.dumps([first, _bind_errno(port)]))
+
+
+def test_launcher_holds_the_rendezvous_port(tmp_path, monkeypatch):
+    """The port that the launcher's store was given is bound in the
+    launcher's process for the whole launch: inside each rank, at its
+    start and at its end, a plain bind to it fails with EADDRINUSE."""
+    real = distributed._rendezvous_store
+
+    def recorded(world):
+        store = real(world)
+        (tmp_path / "port").write_text(str(store.port))
+        return store
+
+    monkeypatch.setattr(distributed, "_rendezvous_store", recorded)
+    assert _launch(_port_rank, [CPU, CPU], str(tmp_path)) == "gloo"
+    assert int((tmp_path / "port").read_text()) > 0
+    for r in range(2):
+        assert json.loads((tmp_path / f"bind{r}").read_text()) == [
+            errno.EADDRINUSE, errno.EADDRINUSE], r
+
+
+@contextlib.contextmanager
+def _reserved_port():
+    """A localhost port held by a socket bound under ``SO_REUSEADDR`` and
+    not listening: no other process's bind can take it, and a store can
+    still listen on it."""
+    with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("127.0.0.1", 0))
+        yield s.getsockname()[1]
+
+
+def _idle_rank(rank, world, device):
+    pass
+
+
+def test_a_rank_that_cannot_reach_the_store_fails_the_launch(monkeypatch):
+    """Ranks handed a port where no store listens fail their launch
+    through the join (each rank's connection times out after the
+    launcher's timeout), well inside ``WAIT_S``: nothing retries on
+    another port and nothing hangs."""
+    monkeypatch.setattr(distributed, "COLLECTIVE_TIMEOUT_S", 2)
+    with _reserved_port() as port:
+        monkeypatch.setattr(distributed, "_rendezvous_store",
+                            lambda world: types.SimpleNamespace(
+                                host="127.0.0.1", port=port))
+        t0 = time.monotonic()
+        with pytest.raises(RuntimeError,
+                           match=r"ranks \[(0|1|0, 1)\] of 2 exited"):
+            _launch(_idle_rank, [CPU, CPU])
+    assert time.monotonic() - t0 < WAIT_S / 2
+
+
 # ------------------------------------------------------------ the trainer
 def _index(seed, n):
     rng = np.random.default_rng(seed)
@@ -434,32 +542,60 @@ _WORKER = textwrap.dedent("""
 """)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+# exit hooks run last in, first out: the one registered before initialize
+# reports after initialize's own hook has run
+_LEAVER = textwrap.dedent("""
+    import atexit, sys
+    import torch.distributed as dist
+    atexit.register(lambda: print("GROUP_LEFT", not dist.is_initialized(),
+                                  flush=True))
+    from subcort_tpu_torch.parallel.distributed import (all_hosts_mean,
+                                                        initialize)
+    initialize(coordinator_address=sys.argv[2], num_processes=2,
+               process_id=int(sys.argv[1]))
+    assert all_hosts_mean(1.0) == 1.0
+""")
+
+
+def _two_processes(script: str) -> list:
+    """``script`` in two processes (argv: the process id and a coordinator
+    address on a port held until both have exited); their outputs, each
+    asserted to have exited with 0."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    with _reserved_port() as port:
+        coord = f"127.0.0.1:{port}"
+        procs = [subprocess.Popen([sys.executable, "-c", script, str(i),
+                                   coord], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  env=env)
+                 for i in range(2)]
+        outs = []
+        for p in procs:
+            try:
+                out, _ = p.communicate(timeout=WAIT_S)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise
+            outs.append(out)
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"process {i} failed:\n{out[-2000:]}"
+    return outs
 
 
 def test_two_process_initialize_shard_and_reduce():
     """tests/test_distributed.py's two processes, on the port's group."""
-    coord = f"127.0.0.1:{_free_port()}"
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(i), coord],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True, env=env)
-             for i in range(2)]
-    outs = []
-    for p in procs:
-        try:
-            out, _ = p.communicate(timeout=WAIT_S)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            raise
-        outs.append(out)
-    for i, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"process {i} failed:\n{out[-2000:]}"
+    for i, out in enumerate(_two_processes(_WORKER)):
         assert f"DISTRIBUTED_OK {i}" in out
+
+
+def test_initialize_leaves_the_group_at_exit():
+    """A process that joined the multi-host group and exits without
+    leaving it has left it before the interpreter's teardown (a gloo
+    group still up there aborts the process now and then, after its work
+    is done)."""
+    for out in _two_processes(_LEAVER):
+        assert "GROUP_LEFT True" in out, out[-2000:]
 
 
 def test_initialize_single_process_is_noop(monkeypatch):

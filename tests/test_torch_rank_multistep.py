@@ -221,9 +221,8 @@ def test_step_capturable_needs_a_group():
 def rank_of_one():
     """This process as the one rank of a gloo group, inside its
     data-parallel block."""
-    dist.init_process_group(
-        "gloo", init_method=f"tcp://127.0.0.1:{distributed.free_port()}",
-        world_size=1, rank=0)
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1,
+                            rank=0)
     try:
         with sync_bn.data_parallel(0, 1):
             yield
