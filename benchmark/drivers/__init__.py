@@ -1,0 +1,2 @@
+"""One general generator per kind of traffic, named by a traffic file's
+``driver`` key."""
