@@ -113,11 +113,12 @@ and the exit code is non-zero:
        subject rose, the warped priors' ROI Dice against the phase-4 ROI
        >= REG_MNI_DICE (the identity Dice beside it), a segmentation with
        non-zero labels, a second register_masks call under 1 s, every
-       level replayed one captured iteration (LEVEL_LOG). Then the same
-       subject again through register_masks with every level a plain loop
-       (``_eager=True``): both calls' transform.nii controls and transf.txt
-       equal. Prints both calls' seconds per stage and peak device memory
-       per stage, and each level's ms per optimiser iteration (CUDA events
+       level replayed one captured iteration (its register.level span).
+       Then the same subject again through register_masks with every
+       level a plain loop (``_eager=True``): both calls' transform.nii
+       controls and transf.txt equal. Prints both calls' seconds per
+       stage and peak device memory per stage (from the register.* spans),
+       and each level's ms per optimiser iteration (CUDA events
        beside the host's enqueue ms; the warm-up's apart), capture ms and
        wall ms; then one iteration of the quarter-resolution affine level
        and of both FFD levels under torch.profiler;
@@ -884,8 +885,36 @@ def dice(a, b) -> float:
     return 2.0 * int((a & b).sum()) / max(int(a.sum()) + int(b.sum()), 1)
 
 
+def registration_spans(recs):
+    """``register_masks``'s calls from their spans: (seconds and peak bytes
+    by stage, each stage's seconds less its NIfTI IO and mask, which are
+    ``io_s`` and ``mask_s``, so that they sum to the calls; the attributes
+    of each ``register.level`` span, with its ``level_ms``)."""
+    report = {}
+    kids = {}
+    for r in recs:
+        kids.setdefault(r.parent, []).append(r)
+    for r in recs:
+        if r.name in ("register.affine", "register.ffd",
+                      "register.prior_warp"):
+            stage = r.name.split(".")[1]
+            apart = 0
+            for k in kids.get(r.id, []):
+                if k.name in ("register.io", "register.mask"):
+                    key = k.name.split(".")[1] + "_s"
+                    report[key] = report.get(key, 0.0) + k.duration_ns * 1e-9
+                    apart += k.duration_ns
+            report[stage + "_s"] = (r.duration_ns - apart) * 1e-9
+            if "peak_bytes" in r.attrs:
+                report[stage + "_peak_bytes"] = r.attrs["peak_bytes"]
+    levels = [dict(r.attrs, level_ms=r.duration_ns * 1e-6)
+              for r in sorted(recs, key=lambda r: r.start_ns)
+              if r.name == "register.level"]
+    return report, levels
+
+
 def print_levels(levels) -> None:
-    """One line per optimiser level of ``torch_backend.LEVEL_LOG``."""
+    """One line per ``register.level`` span (:func:`registration_spans`)."""
     for lv in levels:
         print(f"  level {lv['stage']} {lv.get('dof', '')} {lv['shape']}: "
               f"{lv['iters']} iterations, replayed {lv['replayed']} "
@@ -912,12 +941,11 @@ def registration_phase(torch, device, image, atlas, roi, params, spec,
     from subcort_tpu_torch.config import exact_float32
     from subcort_tpu_torch.models import fcn
     from subcort_tpu_torch.ops import gather_kernel
-    from subcort_tpu_torch.registration import (driver, load_cpp_grid,
+    from subcort_tpu_torch.registration import (load_cpp_grid,
                                                 make_synthetic_cohort,
                                                 register_masks,
                                                 resample_through_affine,
-                                                resample_through_cpp,
-                                                torch_backend)
+                                                resample_through_cpp)
     from subcort_tpu_torch.registration.torch_affine import \
         register_affine_torch
     from subcort_tpu_torch.registration.torch_backend import (
@@ -926,6 +954,7 @@ def registration_phase(torch, device, image, atlas, roi, params, spec,
                                                           jacobian_stats,
                                                           nmi_normalisation,
                                                           register_ffd_torch)
+    from subcort_tpu_torch.utils import runtime
 
     out = {}
     eye = np.eye(4)
@@ -1100,14 +1129,14 @@ def registration_phase(torch, device, image, atlas, roi, params, spec,
         engine = SegmentationEngine(params, options, spec)
         check(engine.register_fn is None, "no register_fn: the engine binds "
               "register_masks itself")
-        torch_backend.LEVEL_LOG, driver.REPORT = [], {}
         gather_kernel.LAUNCHES = 0
         fcn.SLABS = 0
+        runtime.clear_records()
         t0 = time.perf_counter()
-        engine.segment_folder()
+        with runtime.recording():
+            engine.segment_folder()
         seconds = time.perf_counter() - t0
-        levels, torch_backend.LEVEL_LOG = torch_backend.LEVEL_LOG, None
-        report, driver.REPORT = driver.REPORT, None
+        report, levels = registration_spans(runtime.records())
         check(fcn.SLABS >= 1, "the registered scan went through the dense "
               "evaluator")
         tmp = sub / "tmp"
@@ -1167,11 +1196,11 @@ def registration_phase(torch, device, image, atlas, roi, params, spec,
         eager_scan = root / "eager" / "mni01" / "T1.nii.gz"
         eager_scan.parent.mkdir(parents=True)
         shutil.copy(scan, eager_scan)
-        torch_backend.LEVEL_LOG, driver.REPORT = [], {}
-        register_masks(str(eager_scan), backend="torch", similarity="nmi",
-                       device=device, _eager=True)
-        levels_eager, torch_backend.LEVEL_LOG = torch_backend.LEVEL_LOG, None
-        report_eager, driver.REPORT = driver.REPORT, None
+        runtime.clear_records()
+        with runtime.recording():
+            register_masks(str(eager_scan), backend="torch",
+                           similarity="nmi", device=device, _eager=True)
+        report_eager, levels_eager = registration_spans(runtime.records())
         eager_s = sum(v for k, v in report_eager.items() if k.endswith("_s"))
         print(f"the same subject, every level a plain loop: register_masks "
               f"{eager_s:.3f} s, by stage {json.dumps(report_eager)}")
@@ -1272,7 +1301,7 @@ def registration_phase(torch, device, image, atlas, roi, params, spec,
               f"prior mass at {informed:.3f} of the centres")
         out["reg_training_index_s"] = seconds
     finally:
-        torch_backend.LEVEL_LOG = driver.REPORT = None
+        runtime.clear_records()
         if env is None:
             os.environ.pop("SUBCORT_ATLAS_DIR", None)
         else:

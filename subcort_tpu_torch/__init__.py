@@ -89,5 +89,4 @@ from subcort_tpu_torch.ops import (  # noqa: F401
 from subcort_tpu_torch.utils.runtime import (  # noqa: F401
     enable_nan_checks,
     profile_trace,
-    timer,
 )

@@ -78,6 +78,7 @@ from subcort_tpu_torch.parallel import distributed
 from subcort_tpu_torch.parallel.mesh import (DeviceWorkers, available_devices,
                                              replicate)
 from subcort_tpu_torch.registration.driver import check_registration
+from subcort_tpu_torch.utils.runtime import current_request, span
 
 DEFAULT_CHUNK = 8192
 
@@ -168,6 +169,12 @@ def _quantize_priors(vecs: np.ndarray, prior_dtype) -> np.ndarray:
     return vecs.astype(prior_dtype)
 
 
+def _raw_wire(image: np.ndarray) -> bool:
+    """Whether ``image`` goes to the device raw, to be normalized there:
+    narrow integer scans (the usual int16 T1)."""
+    return image.dtype.kind in "iu" and image.dtype.itemsize <= 2
+
+
 def _fcn_slab_inputs(image, stats, atlas, lo, dims, shape, prior_dtype,
                      centers=None):
     """Host prep for one sub-bbox (infer.py:210-334). ``image`` is the RAW
@@ -189,7 +196,7 @@ def _fcn_slab_inputs(image, stats, atlas, lo, dims, shape, prior_dtype,
     mean, std = stats
     # slab axis i covers [lo-HALF, lo+dim+HALF-1]; outside-volume voxels
     # stay 0.0 in normalized space (pad_volume's convention)
-    raw_wire = image.dtype.kind in "iu" and image.dtype.itemsize <= 2
+    raw_wire = _raw_wire(image)
     slab = np.zeros((bx + RF, by + RF, bz + RF),
                     image.dtype if raw_wire else np.float32)
     src, dst = [], []
@@ -270,76 +277,107 @@ def _fcn_scatter_results(labels_b, probs_b, lo, dims, centers, cs,
 
 
 def _fcn_slab(net, image, stats, atlas, lo, dims, prior_dtype, probs_dtype,
-              centers, want_probs, device):
+              centers, want_probs, device, request=None):
     """One sub-bbox through the dense evaluator on ``device``: host prep,
-    upload, :func:`fcn_forward_slab`, readback. Returns the arguments of
-    :func:`_fcn_scatter_results` after the volumes' (labels, probs, lo,
-    dims, centers, cs), or None when no candidate lies inside."""
-    slab, vecs, cs, lin, norm = _fcn_slab_inputs(
-        image, stats, atlas, lo, dims, image.shape, prior_dtype, centers)
-    if slab is None:
-        return None
+    upload, :func:`fcn_forward_slab`, readback, each a span of ``request``
+    (None: the request of the span open on this thread). Returns the
+    arguments of :func:`_fcn_scatter_results` after the volumes' (labels,
+    probs, lo, dims, centers, cs), or None when no candidate lies inside."""
+    with span("infer.slab_inputs", request) as rec:
+        slab, vecs, cs, lin, norm = _fcn_slab_inputs(
+            image, stats, atlas, lo, dims, image.shape, prior_dtype, centers)
+        if slab is None:
+            return None
+        rec.set(rows=len(vecs))
 
     def to_device(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(device)
 
-    if norm is not None:
-        norm = (to_device(norm[0]),) + norm[1:]
-    labels_b, probs_b = fcn_forward_slab(
-        net, to_device(slab), to_device(vecs), want_probs,
-        probs_dtype=getattr(torch, np.dtype(probs_dtype).name),
-        gather_idx=None if lin is None else to_device(lin), norm=norm)
-    return (labels_b.cpu().numpy(),
-            probs_b.cpu().numpy() if want_probs else None, lo, dims,
-            centers, cs)
+    with span("infer.upload", request) as rec:
+        rec.set(bytes=sum(a.nbytes for a in (
+            slab, vecs, lin, None if norm is None else norm[0])
+            if a is not None))
+        slab, vecs = to_device(slab), to_device(vecs)
+        if lin is not None:
+            lin = to_device(lin)
+        if norm is not None:
+            norm = (to_device(norm[0]),) + norm[1:]
+    with span("infer.forward", request):
+        labels_b, probs_b = fcn_forward_slab(
+            net, slab, vecs, want_probs,
+            probs_dtype=getattr(torch, np.dtype(probs_dtype).name),
+            gather_idx=lin, norm=norm)
+    labels_b, probs_b = _readback(labels_b, probs_b if want_probs else None,
+                                  request)
+    return labels_b, probs_b, lo, dims, centers, cs
 
 
-def _fcn_run_bboxes(nets, image, atlas, bboxes, centers, label_vol, prob_vol,
-                    want_probs, prior_dtype, probs_dtype, workers):
+def _readback(labels: torch.Tensor, probs: Optional[torch.Tensor],
+              request=None):
+    """``labels`` and ``probs`` (or None) on the host as numpy arrays: the
+    wait for the device and the copies, as one span."""
+    with span("infer.readback", request) as rec:
+        labels = labels.cpu().numpy()
+        probs = None if probs is None else probs.cpu().numpy()
+        rec.set(bytes=labels.nbytes + (0 if probs is None else probs.nbytes))
+    return labels, probs
+
+
+def _fcn_scatter(res, label_vol, prob_vol, want_probs) -> None:
+    """:func:`_fcn_slab`'s result into the volumes, as one span; nothing
+    for a sub-bbox without candidates (``res`` None)."""
+    if res is not None:
+        with span("infer.scatter"):
+            _fcn_scatter_results(*res, label_vol, prob_vol, want_probs)
+
+
+def _fcn_run_bboxes(nets, image, stats, atlas, bboxes, centers, label_vol,
+                    prob_vol, want_probs, prior_dtype, probs_dtype, workers):
     """The dense evaluator over the sub-bboxes (infer.py:367-452), with
-    ``nets[device]`` on each device. ``workers`` is None on one device:
-    the sub-bboxes run one after another in this thread. Otherwise a
+    ``nets[device]`` on each device; ``stats`` are ``image``'s
+    :func:`normalize_stats`. ``workers`` is None on one device: the
+    sub-bboxes run one after another in this thread. Otherwise a
     :class:`~subcort_tpu_torch.parallel.mesh.DeviceWorkers`: they are dealt
     round-robin over its entries, with at most ``2 x`` its entries' slabs
     in flight before the host scatters the oldest."""
-    stats = normalize_stats(image)
     args = (image, stats, atlas)
     tail = (prior_dtype, probs_dtype, centers, want_probs)
     if workers is None:
         (device, net), = nets.items()
         for lo, dims in bboxes:
-            res = _fcn_slab(net, *args, lo, dims, *tail, device)
-            if res is not None:  # else no candidates in this sub-bbox
-                _fcn_scatter_results(*res, label_vol, prob_vol, want_probs)
+            _fcn_scatter(_fcn_slab(net, *args, lo, dims, *tail, device),
+                         label_vol, prob_vol, want_probs)
         return
     ndev = len(workers.devices)
     pending = deque()
+    request = current_request()
 
     def scatter_oldest():
-        res = pending.popleft().result()
-        if res is not None:
-            _fcn_scatter_results(*res, label_vol, prob_vol, want_probs)
+        _fcn_scatter(pending.popleft().result(), label_vol, prob_vol,
+                     want_probs)
 
     for i, (lo, dims) in enumerate(bboxes):
         dev = workers.devices[i % ndev]
         pending.append(workers.submit(i % ndev, _fcn_slab, nets[dev], *args,
-                                      lo, dims, *tail, dev))
+                                      lo, dims, *tail, dev, request))
         while len(pending) > 2 * ndev:
             scatter_oldest()
     while pending:
         scatter_oldest()
 
 
-def _normalized_padded(image: np.ndarray, device: torch.device) -> torch.Tensor:
-    """The halo-padded, nonzero-normalized float32 volume on ``device``.
+def _normalized_padded(image: np.ndarray, device: torch.device,
+                       stats=None) -> torch.Tensor:
+    """The halo-padded, nonzero-normalized float32 volume on ``device``
+    (``stats``: ``image``'s :func:`normalize_stats`, computed if None).
 
     Narrow integer scans (the usual int16 T1) upload raw and normalize on
     the device with the same float32 ``(x - mean) * inv_std`` arithmetic as
     the host path (JAX: infer.py:86-96, ``_pad_normalize_device``); other
     dtypes normalize on the host. Halo voxels are 0 in normalized space.
     """
-    mean, std = normalize_stats(image)
-    if image.dtype.kind in "iu" and image.dtype.itemsize <= 2:
+    mean, std = normalize_stats(image) if stats is None else stats
+    if _raw_wire(image):
         scal = torch.tensor([mean, 1.0 / std], dtype=torch.float32,
                             device=device)
         raw = torch.from_numpy(image).to(device)
@@ -380,63 +418,85 @@ def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
     :func:`~subcort_tpu_torch.parallel.fcn_sharded.fcn_run_spmd`), or over
     sub-bboxes of at most ``ceil(bbox voxels / entries)`` dealt round-robin
     (``fcn_spmd=False``). ``None`` or one entry is the single-device path.
+
+    The call is one ``infer.segment_volume`` span, its stages spans under
+    it (``infer.prepare``, then per slab or for the patch engine's centers
+    ``infer.slab_inputs``, ``infer.upload``, ``infer.forward``,
+    ``infer.readback`` and ``infer.scatter``; PERF.md §3).
     """
     if engine not in ("auto", "fcn", "patch"):
         raise ValueError(f"unknown engine {engine!r}")
-    if devices is not None and len(devices) == 1:
-        device, devices = devices[0], None
-    if devices is not None:
-        devices = [torch.device(d) for d in devices]
-    elif device is None:
-        device = next(net.parameters()).device
-    image = np.asarray(image)
-    shape = tuple(int(s) for s in image.shape)
-    centers = np.asarray(centers, np.int32).reshape(-1, 3)
-    n = centers.shape[0]
-    atlas = np.asarray(atlas, np.float32)
-    if not want_probs:
-        probs_dtype = np.uint8  # dead without probs (infer.py:492-498)
-    net = net_in_dtype(net, compute_dtype)
-    label_vol = np.zeros(shape, np.uint8)
-    prob_vol = np.zeros(shape + (15,), np.float32) if want_probs else None
-    if n == 0:
-        # the reference's batch generator yields zero batches: all-zero
-        # outputs (base.py:379-380,414-417)
+    with span("infer.segment_volume"):
+        with span("infer.prepare"):
+            if devices is not None and len(devices) == 1:
+                device, devices = devices[0], None
+            if devices is not None:
+                devices = [torch.device(d) for d in devices]
+            elif device is None:
+                device = next(net.parameters()).device
+            image = np.asarray(image)
+            shape = tuple(int(s) for s in image.shape)
+            centers = np.asarray(centers, np.int32).reshape(-1, 3)
+            n = centers.shape[0]
+            atlas = np.asarray(atlas, np.float32)
+            if not want_probs:
+                # dead without probs (infer.py:492-498)
+                probs_dtype = np.uint8
+            net = net_in_dtype(net, compute_dtype)
+            label_vol = np.zeros(shape, np.uint8)
+            prob_vol = (np.zeros(shape + (15,), np.float32) if want_probs
+                        else None)
+            if n == 0:
+                # the reference's batch generator yields zero batches:
+                # all-zero outputs (base.py:379-380,414-417)
+                return label_vol, prob_vol
+            # the gather kernel does not clamp: out-of-volume centers stop
+            # here
+            if centers.min() < 0 or (centers >= np.asarray(shape)).any():
+                raise ValueError(
+                    f"centers outside the volume of shape {shape}")
+
+            lo, dims = _bbox_of(centers, shape)
+            if engine == "auto":
+                engine = "fcn" if int(np.prod(dims)) <= 30 * n else "patch"
+            stats = normalize_stats(image)
+            if engine == "patch" and devices is None:
+                # the patch engine's prior rows, host prep as the dense
+                # engine's slab cut is
+                vecs = _atlas_vectors_host(atlas, centers)
+        fcn_args = (image, stats, atlas, centers, label_vol, prob_vol,
+                    want_probs, prior_dtype, probs_dtype)
+        with exact_float32():
+            if devices is not None:
+                _segment_on_devices(net, devices, engine, lo, dims, chunk,
+                                    fcn_max_bbox_voxels, fcn_spmd, *fcn_args)
+                return label_vol, prob_vol
+            if engine == "fcn":
+                _fcn_run_bboxes({torch.device(device): net}, image, stats,
+                                atlas,
+                                _split_bbox(lo, dims, fcn_max_bbox_voxels),
+                                *fcn_args[3:], None)
+                return label_vol, prob_vol
+
+            with span("infer.upload") as rec:
+                rec.set(bytes=(image.nbytes if _raw_wire(image)
+                               else 4 * image.size) + centers.nbytes
+                        + vecs.nbytes)
+                volume = _normalized_padded(image, device, stats)
+                if volume.is_cuda:
+                    # the kernel's two layouts, once per scan; the plain
+                    # padded volume is freed here
+                    volume = prepare_gather_volume(volume)
+                centers_d = torch.from_numpy(centers).to(device)
+                vecs = torch.from_numpy(vecs).to(device)
+            with span("infer.forward"):
+                labels, probs = forward_centers(
+                    net, volume, centers_d, vecs, chunk, want_probs,
+                    probs_dtype=getattr(torch, np.dtype(probs_dtype).name))
+        labels, probs = _readback(labels, probs if want_probs else None)
+        with span("infer.scatter"):
+            _scatter_centers(labels, probs, centers, label_vol, prob_vol)
         return label_vol, prob_vol
-    # the gather kernel does not clamp: out-of-volume centers stop here
-    if centers.min() < 0 or (centers >= np.asarray(shape)).any():
-        raise ValueError(f"centers outside the volume of shape {shape}")
-
-    lo, dims = _bbox_of(centers, shape)
-    if engine == "auto":
-        engine = "fcn" if int(np.prod(dims)) <= 30 * n else "patch"
-    fcn_args = (image, atlas, centers, label_vol, prob_vol, want_probs,
-                prior_dtype, probs_dtype)
-    with exact_float32():
-        if devices is not None:
-            _segment_on_devices(net, devices, engine, lo, dims, chunk,
-                                fcn_max_bbox_voxels, fcn_spmd, *fcn_args)
-            return label_vol, prob_vol
-        if engine == "fcn":
-            _fcn_run_bboxes({torch.device(device): net}, image, atlas,
-                            _split_bbox(lo, dims, fcn_max_bbox_voxels),
-                            *fcn_args[2:], None)
-            return label_vol, prob_vol
-
-        volume = _normalized_padded(image, device)
-        if volume.is_cuda:
-            # the kernel's two layouts, once per scan; the plain padded
-            # volume is freed here
-            volume = prepare_gather_volume(volume)
-        vecs = _atlas_vectors_host(atlas, centers)
-        labels, probs = forward_centers(
-            net, volume, torch.from_numpy(centers).to(device),
-            torch.from_numpy(vecs).to(device), chunk, want_probs,
-            probs_dtype=getattr(torch, np.dtype(probs_dtype).name))
-    _scatter_centers(labels.cpu().numpy(),
-                     probs.cpu().numpy() if want_probs else None,
-                     centers, label_vol, prob_vol)
-    return label_vol, prob_vol
 
 
 def _scatter_centers(labels, probs, centers, label_vol, prob_vol) -> None:
@@ -448,11 +508,12 @@ def _scatter_centers(labels, probs, centers, label_vol, prob_vol) -> None:
 
 
 def _segment_on_devices(net, devices, engine, lo, dims, chunk,
-                        fcn_max_bbox_voxels, fcn_spmd, image, atlas, centers,
-                        label_vol, prob_vol, want_probs, prior_dtype,
+                        fcn_max_bbox_voxels, fcn_spmd, image, stats, atlas,
+                        centers, label_vol, prob_vol, want_probs, prior_dtype,
                         probs_dtype) -> None:
     """:func:`segment_volume`'s multi-device branch: ``net`` replicated
-    once per distinct device, one host thread per entry of ``devices``."""
+    once per distinct device, one host thread per entry of ``devices``,
+    whose spans carry the call's request."""
     nets = replicate(net, devices)
     with DeviceWorkers(devices) as workers:
         if engine == "patch":
@@ -461,8 +522,9 @@ def _segment_on_devices(net, devices, engine, lo, dims, chunk,
             labels, probs = predict_labels_sharded(
                 nets, workers, image, centers,
                 _atlas_vectors_host(atlas, centers), chunk, want_probs,
-                probs_dtype)
-            _scatter_centers(labels, probs, centers, label_vol, prob_vol)
+                probs_dtype, stats)
+            with span("infer.scatter"):
+                _scatter_centers(labels, probs, centers, label_vol, prob_vol)
         elif fcn_spmd:
             from subcort_tpu_torch.parallel.fcn_sharded import fcn_run_spmd
 
@@ -470,16 +532,17 @@ def _segment_on_devices(net, devices, engine, lo, dims, chunk,
             # entry's slab within fcn_max_bbox_voxels
             for sub_lo, sub_dims in _split_bbox(
                     lo, dims, len(devices) * fcn_max_bbox_voxels):
-                fcn_run_spmd(nets, workers, image, atlas, sub_lo, sub_dims,
-                             centers, label_vol, prob_vol, want_probs,
-                             prior_dtype, probs_dtype)
+                fcn_run_spmd(nets, workers, image, stats, atlas, sub_lo,
+                             sub_dims, centers, label_vol, prob_vol,
+                             want_probs, prior_dtype, probs_dtype)
         else:
             # split finely enough that every entry gets work
             vox = int(np.prod(dims))
             cap = min(fcn_max_bbox_voxels, max(1, -(-vox // len(devices))))
-            _fcn_run_bboxes(nets, image, atlas, _split_bbox(lo, dims, cap),
-                            centers, label_vol, prob_vol, want_probs,
-                            prior_dtype, probs_dtype, workers)
+            _fcn_run_bboxes(nets, image, stats, atlas,
+                            _split_bbox(lo, dims, cap), centers, label_vol,
+                            prob_vol, want_probs, prior_dtype, probs_dtype,
+                            workers)
 
 
 def _data_parallel_devices(options: Options) -> Optional[list]:
@@ -501,30 +564,41 @@ def _data_parallel_devices(options: Options) -> Optional[list]:
     return avail[:dp]
 
 
+def _subject(scan_path: str) -> str:
+    """The subject of ``scan_path``: its folder's name, the request id of
+    the scan's spans."""
+    return os.path.basename(os.path.dirname(os.path.abspath(scan_path)))
+
+
 def _load_scan_inputs(scan_path: str, options: Options, register_fn=None,
-                      device: Optional[torch.device] = None):
+                      device: Optional[torch.device] = None, request=None):
     """Host-side per-scan prep: priors from the per-subject ``tmp/`` cache,
-    the T1 + prior volumes, and the candidate voxels. On a cache miss the
-    scan is registered first: by ``register_fn(scan_path)``, else by
-    ``register_masks`` with the configured backend and cost, the on-device
-    backend on ``device`` (``None``: the one ``options.mode`` names)."""
+    the T1 + prior volumes (``infer.load``), and the candidate voxels
+    (``infer.candidates``), spans of ``request`` (None: the request of the
+    span open on this thread). On a cache miss the scan is registered
+    first: by ``register_fn(scan_path)``, else by ``register_masks`` with
+    the configured backend and cost, the on-device backend on ``device``
+    (``None``: the one ``options.mode`` names)."""
     image_dir, _ = os.path.split(scan_path)
     tmp = os.path.join(image_dir, "tmp")
     prior_path = os.path.join(tmp, "MNI_sub_probabilities.nii.gz")
     mask_path = os.path.join(tmp, "MNI_subcortical_mask.nii.gz")
 
-    if not os.path.exists(prior_path):
-        if register_fn is None:
-            from subcort_tpu_torch.registration import register_masks
-            register_fn = _configured_register(register_masks, options,
-                                               device)
-        register_fn(scan_path)
+    with span("infer.load", request):
+        if not os.path.exists(prior_path):
+            if register_fn is None:
+                from subcort_tpu_torch.registration import register_masks
+                register_fn = _configured_register(register_masks, options,
+                                                   device)
+            register_fn(scan_path)
 
-    t1 = load_nii(scan_path)
-    image = np.asarray(t1.data)
-    atlas = load_nii(prior_path).data
-    atlas_mask = load_nii(mask_path).data if os.path.exists(mask_path) else None
-    centers = candidate_centers(image, options, atlas_mask)
+        t1 = load_nii(scan_path)
+        image = np.asarray(t1.data)
+        atlas = load_nii(prior_path).data
+        atlas_mask = (load_nii(mask_path).data if os.path.exists(mask_path)
+                      else None)
+    with span("infer.candidates", request):
+        centers = candidate_centers(image, options, atlas_mask)
     return t1, image, atlas, centers
 
 
@@ -571,8 +645,21 @@ def test_scan(net: TriPlanarNet, scan_path: str, options: Options,
     the writes are deferred, so they are NOT comparable to serial-mode
     numbers, which cover load + segment + write. The output files are on
     disk once the caller drains the writer.
+
+    The scan is one ``infer.scan`` span whose request is the subject
+    (the scan's folder), with ``infer.load``, ``infer.candidates``,
+    ``infer.segment_volume`` and ``infer.write`` under it; the pipelined
+    sweep's load and write run on their threads under the same request.
     """
     check_slice_options(options)
+    with span("infer.scan", _subject(scan_path)):
+        return _test_scan(net, scan_path, options, register_fn, device,
+                          devices, _inputs, _writer)
+
+
+def _test_scan(net, scan_path, options, register_fn, device, devices,
+               _inputs, _writer) -> float:
+    """:func:`test_scan` inside its span."""
     s_time = time.time()
     image_dir, _ = os.path.split(scan_path)
     t1, image, atlas, centers = (
@@ -601,23 +688,29 @@ def test_scan(net: TriPlanarNet, scan_path: str, options: Options,
     affine = t1.affine
     seg_dtype = image.dtype if image.dtype.kind in "iu" else np.uint8
     cc_device = device if device is not None else next(net.parameters()).device
+    subject = _subject(scan_path)
 
     def write_outputs():
-        if want_probs:
-            save_nii(NiftiImage(np.asarray(prob_vol, np.float32), affine),
-                     os.path.join(image_dir, "out_subcortical_prob.nii.gz"))
-        if options.bool("post_process"):
-            filtered = post_process_segmentation(
-                image_dir, label_vol,
-                bugcompat_argmax=options["bugcompat_postprocess_argmax"],
-                cc_backend=options["cc_backend"], device=cc_device)
-            save_nii(NiftiImage(filtered.astype(seg_dtype), affine),
-                     os.path.join(image_dir, "out_subcortical_seg_prec.nii.gz"))
-        else:
-            save_nii(NiftiImage(label_vol.astype(np.uint8), affine),
-                     os.path.join(image_dir, "out_subcortical_rawseg.nii.gz"))
-        if options["net_verbose"]:
-            stats.emit()  # one JSON line: wall_seconds, voxels_per_sec, ...
+        with span("infer.write", subject):
+            if want_probs:
+                save_nii(NiftiImage(np.asarray(prob_vol, np.float32), affine),
+                         os.path.join(image_dir,
+                                      "out_subcortical_prob.nii.gz"))
+            if options.bool("post_process"):
+                filtered = post_process_segmentation(
+                    image_dir, label_vol,
+                    bugcompat_argmax=options["bugcompat_postprocess_argmax"],
+                    cc_backend=options["cc_backend"], device=cc_device)
+                save_nii(NiftiImage(filtered.astype(seg_dtype), affine),
+                         os.path.join(image_dir,
+                                      "out_subcortical_seg_prec.nii.gz"))
+            else:
+                save_nii(NiftiImage(label_vol.astype(np.uint8), affine),
+                         os.path.join(image_dir,
+                                      "out_subcortical_rawseg.nii.gz"))
+            if options["net_verbose"]:
+                # one JSON line: wall_seconds, voxels_per_sec, ...
+                stats.emit()
 
     if _writer is None:
         write_outputs()
@@ -683,15 +776,15 @@ class SegmentationEngine:
         returned, and no tensor crosses threads. (One stream for every
         load: the caching allocator reuses a stream's freed blocks only on
         that stream.)"""
+        args = (path, self.options, self.register_fn, self.device,
+                _subject(path))
         if self.device.type != "cuda":
-            return _load_scan_inputs(path, self.options, self.register_fn,
-                                     self.device)
+            return _load_scan_inputs(*args)
         if self._load_stream is None:
             self._load_stream = torch.cuda.Stream(self.device)
         stream = self._load_stream
         with torch.cuda.stream(stream):
-            out = _load_scan_inputs(path, self.options, self.register_fn,
-                                    self.device)
+            out = _load_scan_inputs(*args)
         stream.synchronize()
         return out
 

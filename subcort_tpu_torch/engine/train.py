@@ -40,6 +40,10 @@ the graph.
 
 History is JSONL plus the reference's ``<name>_history.pkl`` (epoch,
 train_loss, valid_loss, valid_accuracy, *_best flags, dur).
+
+Each epoch of ``fit`` is one ``train.epoch`` span, with ``train.rows``,
+``train.call`` and ``train.loss_readback`` for each call of steps,
+``train.validation`` and ``train.checkpoint`` under it (PERF.md §3).
 """
 
 from __future__ import annotations
@@ -72,7 +76,7 @@ from subcort_tpu_torch.ops.patches import Patches
 from subcort_tpu_torch.parallel import distributed, sync_bn
 from subcort_tpu_torch.parallel.mesh import make_devices, shard_rows
 from subcort_tpu_torch.utils.graphs import GraphedStep
-from subcort_tpu_torch.utils.runtime import check_nans
+from subcort_tpu_torch.utils.runtime import check_nans, span
 
 ADAM = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
 
@@ -701,115 +705,142 @@ class Trainer:
         with multistep:
             while self.epoch < max_epochs:
                 self.epoch += 1
-                t0 = time.time()
-                if self._lr_per_epoch is not None:
-                    self.optimizer.set_lr(self._lr_per_epoch[min(
-                        self.epoch - 1, len(self._lr_per_epoch) - 1)])
-                order = train_idx
-                if self.shuffle_each_epoch:
-                    order = self.shuffle_rng.permutation(train_idx)
+                with span("train.epoch", f"epoch{self.epoch}"):
+                    t0 = time.time()
+                    if self._lr_per_epoch is not None:
+                        self.optimizer.set_lr(self._lr_per_epoch[min(
+                            self.epoch - 1, len(self._lr_per_epoch) - 1)])
+                    order = train_idx
+                    if self.shuffle_each_epoch:
+                        order = self.shuffle_rng.permutation(train_idx)
 
-                # ---- train epoch: full global batches, the remainder
-                # dropped; steps_per_call steps a call, their losses read
-                # back after it
-                n_steps = len(order) // step_rows
-                rows = torch.from_numpy(order[:n_steps * step_rows].reshape(
-                    -1, step_rows)[:, mine].reshape(-1)).to(dev)
-                e_centers, e_labels, e_atlas = (centers[rows], labels[rows],
-                                                atlas[rows])
-                losses = []
-                for i in range(0, n_steps, self.steps_per_call):
-                    k = min(self.steps_per_call, n_steps - i)
-                    sl = slice(i * batch_size, (i + k) * batch_size)
-                    # the global batch's loss of each step: the mean over
-                    # the ranks
-                    got = sync_bn.all_reduce_mean(multistep(
-                        e_centers[sl].view(k, batch_size, -1),
-                        e_labels[sl].view(k, batch_size),
-                        e_atlas[sl].view(k, batch_size, -1))).tolist()
-                    nan = next((j for j, v in enumerate(got)
-                                if math.isnan(v)), None)
-                    if nan is not None:
-                        check_nans(f"the train loss of epoch {self.epoch}, "
-                                   f"step {i + nan + 1}", got[nan])
-                    losses.extend(got)
-                train_loss = (float(np.mean(np.asarray(losses, np.float32)))
-                              if losses else float("nan"))
+                    # ---- train epoch: full global batches, the remainder
+                    # dropped; steps_per_call steps a call, their losses
+                    # read back after it
+                    n_steps = len(order) // step_rows
+                    with span("train.rows", rows=n_steps * batch_size):
+                        rows = torch.from_numpy(
+                            order[:n_steps * step_rows].reshape(
+                                -1, step_rows)[:, mine].reshape(-1)).to(dev)
+                        e_centers, e_labels, e_atlas = (
+                            centers[rows], labels[rows], atlas[rows])
+                    losses = []
+                    for i in range(0, n_steps, self.steps_per_call):
+                        k = min(self.steps_per_call, n_steps - i)
+                        sl = slice(i * batch_size, (i + k) * batch_size)
+                        # the global batch's loss of each step: the mean
+                        # over the ranks
+                        with span("train.call", steps=k):
+                            got = sync_bn.all_reduce_mean(multistep(
+                                e_centers[sl].view(k, batch_size, -1),
+                                e_labels[sl].view(k, batch_size),
+                                e_atlas[sl].view(k, batch_size, -1)))
+                        with span("train.loss_readback"):
+                            got = got.tolist()
+                        nan = next((j for j, v in enumerate(got)
+                                    if math.isnan(v)), None)
+                        if nan is not None:
+                            check_nans(f"the train loss of epoch "
+                                       f"{self.epoch}, step {i + nan + 1}",
+                                       got[nan])
+                        losses.extend(got)
+                    train_loss = (
+                        float(np.mean(np.asarray(losses, np.float32)))
+                        if losses else float("nan"))
 
-                # ---- validation
-                sums, corrects = [], []
-                for i in range(0, len(v_labels), eval_bs):
-                    sl = slice(i, i + eval_bs)
-                    views = gather_triplanar_cuda(volume, v_centers[sl],
-                                                  patch)
-                    s, c = eval_step(self.net, views, v_labels[sl],
-                                     v_atlas[sl])
-                    sums.append(s)
-                    corrects.append(c)
-                vloss = sum(torch.stack(sums).tolist()) if sums else 0.0
-                vcorrect = int(torch.stack(corrects).sum()) if corrects else 0
-                if dp is not None:
-                    total = sync_bn.all_reduce_sum(torch.tensor(
-                        [vloss, vcorrect], dtype=torch.float64, device=dev))
-                    vloss, vcorrect = float(total[0]), int(total[1])
-                check_nans("the validation loss", vloss)
-                vcount = len(valid_idx)
-                valid_loss = vloss / max(vcount, 1)
-                valid_acc = vcorrect / max(vcount, 1)
-                dur = time.time() - t0
+                    with span("train.validation", rows=len(v_labels)):
+                        vloss, vcorrect = self._validate(
+                            volume, patch, v_centers, v_labels, v_atlas,
+                            eval_bs, dp)
+                    vcount = len(valid_idx)
+                    valid_loss = vloss / max(vcount, 1)
+                    valid_acc = vcorrect / max(vcount, 1)
+                    dur = time.time() - t0
 
-                improved = valid_loss < self.best_valid_loss
-                if improved:
-                    self.best_valid_loss = valid_loss
-                    self.best_epoch = self.epoch
+                    improved = valid_loss < self.best_valid_loss
+                    if improved:
+                        self.best_valid_loss = valid_loss
+                        self.best_epoch = self.epoch
+                    rec = {
+                        "epoch": self.epoch,
+                        "train_loss": train_loss,
+                        "valid_loss": valid_loss,
+                        "valid_accuracy": valid_acc,
+                        "train_loss_best": bool(train_loss <= min(
+                            [h["train_loss"] for h in self.history]
+                            + [train_loss])),
+                        "valid_loss_best": bool(improved),
+                        "valid_accuracy_best": bool(valid_acc >= max(
+                            [h["valid_accuracy"] for h in self.history]
+                            + [valid_acc])),
+                        "dur": dur,
+                    }
+                    self.history.append(rec)
                     if writes:
-                        # SaveWeights(only_best=True): reference-format pickle
-                        save_theano_checkpoint(self.net.state_dict(),
-                                               self.weights_file)
+                        self._checkpoint(rec, improved)
 
-                rec = {
-                    "epoch": self.epoch,
-                    "train_loss": train_loss,
-                    "valid_loss": valid_loss,
-                    "valid_accuracy": valid_acc,
-                    "train_loss_best": bool(train_loss <= min(
-                        [h["train_loss"] for h in self.history]
-                        + [train_loss])),
-                    "valid_loss_best": bool(improved),
-                    "valid_accuracy_best": bool(valid_acc >= max(
-                        [h["valid_accuracy"] for h in self.history]
-                        + [valid_acc])),
-                    "dur": dur,
-                }
-                self.history.append(rec)
-                if writes:
-                    with open(self.history_file, "a") as fh:
-                        fh.write(json.dumps(rec) + "\n")
-                    # reference-format mirror: nolearn SaveTrainingHistory
-                    # wrote a pickle of the per-epoch dict list (nets.py:156)
-                    with open(self.history_file.replace(
-                            "_history.jsonl", "_history.pkl"), "wb") as fh:
-                        pickle.dump(self.history, fh, protocol=2)
-                    self._save_state()
-
-                if verbose:
-                    print(f"  epoch {self.epoch:4d}  train_loss "
-                          f"{train_loss:.5f}  valid_loss {valid_loss:.5f}  "
-                          f"valid_acc {valid_acc:.5f}  "
-                          f"{'*' if improved else ' '}  {dur:.1f}s")
-
-                # EarlyStopping(patience): stop when no improvement for
-                # `patience` (every rank reads the same reduced valid_loss,
-                # so all stop at the same epoch)
-                if self.epoch >= self.best_epoch + patience:
                     if verbose:
-                        print(f"  early stopping: best epoch "
-                              f"{self.best_epoch} (valid_loss "
-                              f"{self.best_valid_loss:.5f})")
-                    break
+                        print(f"  epoch {self.epoch:4d}  train_loss "
+                              f"{train_loss:.5f}  valid_loss "
+                              f"{valid_loss:.5f}  valid_acc {valid_acc:.5f}"
+                              f"  {'*' if improved else ' '}  {dur:.1f}s")
+
+                    # EarlyStopping(patience): stop when no improvement for
+                    # `patience` (every rank reads the same reduced
+                    # valid_loss, so all stop at the same epoch)
+                    if self.epoch >= self.best_epoch + patience:
+                        if verbose:
+                            print(f"  early stopping: best epoch "
+                                  f"{self.best_epoch} (valid_loss "
+                                  f"{self.best_valid_loss:.5f})")
+                        break
 
         self.step_graph = multistep.graphed
         return self.history
+
+    def _validate(self, volume, patch: int, centers, labels, atlas,
+                  eval_bs: int, dp) -> tuple:
+        """(cross-entropy sum, correct count) over the validation rows, in
+        batches of ``eval_bs`` gathered from ``volume``, summed over the
+        ranks."""
+        sums, corrects = [], []
+        for i in range(0, len(labels), eval_bs):
+            sl = slice(i, i + eval_bs)
+            views = gather_triplanar_cuda(volume, centers[sl], patch)
+            s, c = eval_step(self.net, views, labels[sl], atlas[sl])
+            sums.append(s)
+            corrects.append(c)
+        vloss = sum(torch.stack(sums).tolist()) if sums else 0.0
+        vcorrect = int(torch.stack(corrects).sum()) if corrects else 0
+        if dp is not None:
+            total = sync_bn.all_reduce_sum(torch.tensor(
+                [vloss, vcorrect], dtype=torch.float64, device=self.device))
+            vloss, vcorrect = float(total[0]), int(total[1])
+        check_nans("the validation loss", vloss)
+        return vloss, vcorrect
+
+    def _checkpoint(self, rec: dict, improved: bool) -> None:
+        """An epoch's writes, as one ``train.checkpoint`` span with the
+        bytes written: the weights pickle when validation improved
+        (SaveWeights(only_best=True), the reference's format), the history
+        JSONL and its reference-format pickle mirror (nolearn
+        SaveTrainingHistory, nets.py:156), and the state file."""
+        pkl = self.history_file.replace("_history.jsonl", "_history.pkl")
+        with span("train.checkpoint") as ck:
+            if improved:
+                save_theano_checkpoint(self.net.state_dict(),
+                                       self.weights_file)
+            line = json.dumps(rec) + "\n"
+            with open(self.history_file, "a") as fh:
+                fh.write(line)
+            with open(pkl, "wb") as fh:
+                pickle.dump(self.history, fh, protocol=2)
+            self._save_state()
+            if ck:
+                ck.set(bytes=len(line.encode()) + sum(
+                    os.path.getsize(f) for f in
+                    [pkl, self.state_file]
+                    + [self.weights_file] * improved))
 
     def hand_off(self, workdir: Path, index: TrainingIndex, max_epochs: int,
                  _eager: bool = False) -> None:

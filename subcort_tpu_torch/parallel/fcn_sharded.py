@@ -21,9 +21,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from subcort_tpu_torch.engine.infer import _fcn_scatter_results, _fcn_slab
-from subcort_tpu_torch.ops.normalize import normalize_stats
+from subcort_tpu_torch.engine.infer import _fcn_scatter, _fcn_slab
 from subcort_tpu_torch.parallel.mesh import DeviceWorkers
+from subcort_tpu_torch.utils.runtime import current_request
 
 
 def spmd_sub_bboxes(lo, dims, ndev: int) -> list:
@@ -42,21 +42,21 @@ def spmd_sub_bboxes(lo, dims, ndev: int) -> list:
 
 
 def fcn_run_spmd(nets: Dict[torch.device, torch.nn.Module],
-                 workers: DeviceWorkers, image: np.ndarray,
+                 workers: DeviceWorkers, image: np.ndarray, stats,
                  atlas: np.ndarray, lo, dims, centers: np.ndarray,
                  label_vol: np.ndarray, prob_vol, want_probs: bool,
                  prior_dtype, probs_dtype) -> None:
     """Segment the candidate bbox (lo, dims) with one sub-slab per entry of
     ``workers``, ``nets[device]`` on each, scattering into ``label_vol`` /
-    ``prob_vol`` (the contract of ``engine.infer._fcn_run_bboxes``)."""
-    stats = normalize_stats(image)
+    ``prob_vol`` (the contract of ``engine.infer._fcn_run_bboxes``;
+    ``stats`` are ``image``'s ``normalize_stats``)."""
+    request = current_request()
     futures = [
         workers.submit(i, _fcn_slab, nets[dev], image, stats, atlas, sub_lo,
                        sub_dims, prior_dtype, probs_dtype, centers,
-                       want_probs, dev)
+                       want_probs, dev, request)
         for i, (dev, (sub_lo, sub_dims)) in enumerate(zip(
             workers.devices, spmd_sub_bboxes(lo, dims, len(workers.devices))))]
     for f in futures:
-        res = f.result()
-        if res is not None:  # else no candidates in this sub-slab
-            _fcn_scatter_results(*res, label_vol, prob_vol, want_probs)
+        # nothing for a sub-slab without candidates
+        _fcn_scatter(f.result(), label_vol, prob_vol, want_probs)

@@ -41,6 +41,7 @@ Improvements over the reference, each behind a flag:
 
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
 import time
@@ -56,6 +57,7 @@ from subcort_tpu_torch.registration.torch_backend import (
     load_cpp_grid, resample_through_affine, resample_through_cpp)
 from subcort_tpu_torch.registration.torch_ffd import (register_ffd_torch,
                                                       save_cpp_grid)
+from subcort_tpu_torch.utils.runtime import span
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO_DIR = os.path.dirname(_PKG_DIR)
@@ -67,15 +69,6 @@ ATLAS_NAME = "atlas_subcortical_MNI.nii.gz"
 
 BACKENDS = ("native", "torch")
 SIMILARITIES = ("ssd", "nmi")
-
-# When a dict, register_masks fills it with what the call spent, by stage
-# that ran (stages served from the cache are absent): ``affine_s``,
-# ``ffd_s`` and ``prior_warp_s`` (the fit or warp with its resample),
-# ``io_s`` (NIfTI reads and writes only), ``mask_s`` (the ROI mask: channel
-# sum and dilation), which together sum to the call; on a card also
-# ``<stage>_peak_bytes``, for which every stage resets the device's peak
-# memory statistics. None (the default) records nothing and resets nothing.
-REPORT: dict | None = None
 
 
 class RegistrationError(RuntimeError):
@@ -115,46 +108,33 @@ def _run(cmd: list[str]) -> None:
         raise RegistrationError(f"{cmd[0]} failed ({r.returncode}): {r.stderr[-800:]}")
 
 
-class _Stage:
-    """One stage's entries of :data:`REPORT`; does nothing while that is
-    None. ``io`` and ``mask`` time a call apart from the stage's own
-    seconds, so that the entries sum to the stage."""
+@contextlib.contextmanager
+def _stage(name: str, device):
+    """One stage of :func:`register_masks` that ran (a cached one opens
+    none) as a ``register.<name>`` span: the fit or warp with its
+    resample, with the NIfTI reads and writes (:func:`_io`) and the ROI
+    mask (:func:`_mask`) as its children, so that its self time is the
+    rest. While spans record on a card, the stage resets the device's peak
+    memory statistics and keeps the peak as ``peak_bytes``."""
+    with span("register." + name) as rec:
+        cuda = bool(rec) and device is not None and device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        yield
+        if cuda:
+            rec.set(peak_bytes=torch.cuda.max_memory_allocated(device))
 
-    def __init__(self, name: str, device):
-        self.name, self.apart = name, {"io_s": 0.0, "mask_s": 0.0}
-        self.cuda = (REPORT is not None and device is not None
-                     and device.type == "cuda")
-        self.device = device
 
-    def __enter__(self):
-        if self.cuda:
-            torch.cuda.reset_peak_memory_stats(self.device)
-        self.t0 = time.perf_counter()
-        return self
+def _io(fn, *args):
+    """``fn(*args)``, a NIfTI read or write, as a ``register.io`` span."""
+    with span("register.io"):
+        return fn(*args)
 
-    def _timed(self, key, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        self.apart[key] += time.perf_counter() - t0
-        return out
 
-    def io(self, fn, *args):
-        return self._timed("io_s", fn, *args)
-
-    def mask(self, fn, *args):
-        return self._timed("mask_s", fn, *args)
-
-    def __exit__(self, *exc):
-        if exc[0] is None and REPORT is not None:
-            total = time.perf_counter() - self.t0
-            REPORT[self.name + "_s"] = total - sum(self.apart.values())
-            for key, seconds in self.apart.items():
-                if seconds:
-                    REPORT[key] = REPORT.get(key, 0.0) + seconds
-            if self.cuda:
-                REPORT[self.name + "_peak_bytes"] = \
-                    torch.cuda.max_memory_allocated(self.device)
-        return False
+def _mask(fn, *args):
+    """``fn(*args)``, the ROI mask, as a ``register.mask`` span."""
+    with span("register.mask"):
+        return fn(*args)
 
 
 def _roi_mask(s_atlas: np.ndarray, hi: int, dilate_iters: int) -> np.ndarray:
@@ -190,8 +170,22 @@ def register_masks(input_scan: str, atlas_dir: str | None = None,
     On the card every optimiser level runs as one captured iteration
     replayed (torch_backend.run_level); ``_eager`` runs them as plain
     loops, for comparisons of the two.
+
+    The call is one ``register.masks`` span; each stage that runs is a
+    child (``register.affine``, ``register.ffd``, ``register.prior_warp``:
+    :func:`_stage`), its optimiser levels ``register.level`` spans.
     """
     check_registration(backend, similarity)
+    with span("register.masks"):
+        return _register_masks(input_scan, atlas_dir, tools_dir, per_channel,
+                               bugcompat_mask_channels, dilate_iters,
+                               backend, similarity, device, _eager)
+
+
+def _register_masks(input_scan, atlas_dir, tools_dir, per_channel,
+                    bugcompat_mask_channels, dilate_iters, backend,
+                    similarity, device, _eager) -> float:
+    """:func:`register_masks` inside its span."""
     on_device = backend == "torch"
     device = resolve_device(device) if on_device else None
     image_dir, _ = os.path.split(os.path.abspath(input_scan))
@@ -209,9 +203,9 @@ def register_masks(input_scan: str, atlas_dir: str | None = None,
     # stage 1: affine (native: block matching; torch: on-device 12-dof descent)
     if not os.path.exists(os.path.join(tmp, "rT1_template.nii.gz")):
         if on_device:
-            with _Stage("affine", device) as stage:
-                t1_img = stage.io(load_nii, input_scan)
-                tmpl_img = stage.io(load_nii, template)
+            with _stage("affine", device):
+                t1_img = _io(load_nii, input_scan)
+                tmpl_img = _io(load_nii, template)
                 A = register_affine_torch(
                     np.asarray(t1_img.data, np.float32),
                     np.asarray(tmpl_img.data, np.float32),
@@ -221,9 +215,9 @@ def register_masks(input_scan: str, atlas_dir: str | None = None,
                 warped = resample_through_affine(
                     np.asarray(tmpl_img.data, np.float32), tmpl_img.affine,
                     A, t1_img.shape, t1_img.affine, device=device)
-                stage.io(save_nii,
-                         NiftiImage(warped.astype(np.float32), t1_img.affine),
-                         os.path.join(tmp, "rT1_template.nii.gz"))
+                _io(save_nii,
+                    NiftiImage(warped.astype(np.float32), t1_img.affine),
+                    os.path.join(tmp, "rT1_template.nii.gz"))
         else:
             _run([os.path.join(tools, "reg_aladin"),
                   "-ref", input_scan, "-flo", template,
@@ -233,9 +227,9 @@ def register_masks(input_scan: str, atlas_dir: str | None = None,
     # stage 2: deformable (B-spline FFD)
     if not os.path.exists(os.path.join(tmp, "rT1d_template.nii.gz")):
         if on_device:
-            with _Stage("ffd", device) as stage:
-                t1_img = stage.io(load_nii, input_scan)
-                tmpl_img = stage.io(load_nii, template)
+            with _stage("ffd", device):
+                t1_img = _io(load_nii, input_scan)
+                tmpl_img = _io(load_nii, template)
                 A = np.loadtxt(transf)
                 grid, _ = register_ffd_torch(
                     np.asarray(t1_img.data, np.float32),
@@ -243,13 +237,13 @@ def register_masks(input_scan: str, atlas_dir: str | None = None,
                     ref_affine=t1_img.affine, flo_affine=tmpl_img.affine,
                     init_affine=A, cost=similarity, device=device,
                     _eager=_eager)
-                stage.io(save_cpp_grid, grid, cpp)
+                _io(save_cpp_grid, grid, cpp)
                 warped = resample_through_cpp(
                     np.asarray(tmpl_img.data, np.float32), tmpl_img.affine,
                     grid, t1_img.shape, t1_img.affine, device=device)
-                stage.io(save_nii,
-                         NiftiImage(warped.astype(np.float32), t1_img.affine),
-                         os.path.join(tmp, "rT1d_template.nii.gz"))
+                _io(save_nii,
+                    NiftiImage(warped.astype(np.float32), t1_img.affine),
+                    os.path.join(tmp, "rT1d_template.nii.gz"))
         else:
             # pass the cost explicitly: the call's semantics must not depend
             # on the tool's own default (which is also NMI, matching
@@ -263,11 +257,11 @@ def register_masks(input_scan: str, atlas_dir: str | None = None,
     # stage 3: warp the 15 prior channels + build the binary ROI mask
     prior_path = os.path.join(tmp, "MNI_sub_probabilities.nii.gz")
     if not os.path.exists(prior_path):
-        with _Stage("prior_warp", device) as stage:
-            t1 = stage.io(load_nii, input_scan)
+        with _stage("prior_warp", device):
+            t1 = _io(load_nii, input_scan)
             if on_device:
-                atlas_img = stage.io(load_nii, atlas4d)
-                grid = stage.io(load_cpp_grid, cpp, t1.affine)
+                atlas_img = _io(load_nii, atlas4d)
+                grid = _io(load_cpp_grid, cpp, t1.affine)
                 s_atlas = resample_through_cpp(
                     np.asarray(atlas_img.data, np.float32), atlas_img.affine,
                     grid, t1.shape, t1.affine,
@@ -294,11 +288,10 @@ def register_masks(input_scan: str, atlas_dir: str | None = None,
                 s_atlas = np.asarray(load_nii(
                     os.path.join(tmp, "r_atlas4d.nii.gz")).data, np.float32)
 
-            stage.io(save_nii, NiftiImage(s_atlas, t1.affine), prior_path)
+            _io(save_nii, NiftiImage(s_atlas, t1.affine), prior_path)
             hi = 13 if bugcompat_mask_channels else 14  # reference sums 0:13
-            dilated = stage.mask(_roi_mask, s_atlas, hi, dilate_iters)
-            stage.io(save_nii,
-                     NiftiImage(dilated.astype(np.float32), t1.affine),
-                     os.path.join(tmp, "MNI_subcortical_mask.nii.gz"))
+            dilated = _mask(_roi_mask, s_atlas, hi, dilate_iters)
+            _io(save_nii, NiftiImage(dilated.astype(np.float32), t1.affine),
+                os.path.join(tmp, "MNI_subcortical_mask.nii.gz"))
 
     return time.time() - s_time

@@ -22,7 +22,6 @@ Every public function takes a ``device``; ``None`` means
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -31,13 +30,7 @@ import torch
 from subcort_tpu_torch.config import exact_float32, resolve_device
 from subcort_tpu_torch.io import load_nii
 from subcort_tpu_torch.utils.graphs import WARMUP, GraphedStep, timed
-
-# When a list, every optimiser level (torch_affine / torch_ffd) appends one
-# dict (run_level): stage, level shape, iterations, whether it replayed a
-# CUDA graph, the capture's ms, device ms per iteration by CUDA events (None
-# on the CPU) and the host's ms per iteration to enqueue them. Costs a few
-# events and one synchronize per level; None (the default) records nothing.
-LEVEL_LOG: Optional[list] = None
+from subcort_tpu_torch.utils.runtime import span
 
 # optax.adam's defaults, the JAX package's optimiser
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -174,43 +167,44 @@ def run_level(step, iters: int, device: torch.device, eager: bool = False,
     caching allocator. A failed capture or replay raises; nothing falls
     back to the loop.
 
-    With :data:`LEVEL_LOG` a list, appends ``facts`` with: ``iters``;
+    The level is one ``register.level`` span with ``facts`` (stage, cost,
+    shape) as attributes, and the capture its ``graph.capture`` child.
+    While spans record, the level also times itself and adds: ``iters``;
     ``replayed``; ``warmup_iters``; ``capture_ms`` (host ms to capture
-    and instantiate the graph); ``device_ms_per_iter`` and
-    ``host_enqueue_ms_per_iter`` over the replayed iterations (all of them
-    in a plain loop); the same for the warm-up; ``level_ms``, the host's
-    wall time of the whole level to its end on the device; and, on the
-    card, ``reserved_bytes`` (the caching allocator's, graph pools
-    included, at the level's end)."""
-    t_level = time.perf_counter()
-    on = LEVEL_LOG is not None
-    with exact_float32():
-        if device.type == "cuda" and not eager:
-            with GraphedStep(step, device) as graphed:
-                first, rest = graphed.run(iters, on)
+    and instantiate the graph); ``device_ms_per_iter`` (CUDA events; None
+    on the CPU) and ``host_enqueue_ms_per_iter`` over the replayed
+    iterations (all of them in a plain loop); the same for the warm-up;
+    and, on the card, ``reserved_bytes`` (the caching allocator's, graph
+    pools included, at the level's end). That costs a few events and one
+    synchronize, inside the span, which then ends with the level on the
+    device."""
+    with span("register.level", **facts) as rec:
+        on = bool(rec)
+        with exact_float32():
+            if device.type == "cuda" and not eager:
+                with GraphedStep(step, device) as graphed:
+                    first, rest = graphed.run(iters, on)
+            else:
+                first, rest = timed(step, iters, device, on), None
+        if not on:
+            return
+        replayed = rest is not None
+        n_warm = WARMUP_ITERS if replayed else 0
+        rec.set(iters=iters, replayed=replayed, warmup_iters=n_warm,
+                capture_ms=graphed.capture_ms if replayed else None,
+                warmup_device_ms_per_iter=None,
+                warmup_enqueue_ms_per_iter=None)
+        if replayed:
+            device_ms, enqueue_ms = rest.per_call(iters - n_warm)
+            warm_device_ms, warm_enqueue_ms = first.per_call(n_warm)
+            rec.set(warmup_device_ms_per_iter=warm_device_ms,
+                    warmup_enqueue_ms_per_iter=warm_enqueue_ms)
         else:
-            first, rest = timed(step, iters, device, on), None
-    if not on:
-        return
-    replayed = rest is not None
-    n_warm = WARMUP_ITERS if replayed else 0
-    entry = dict(facts, iters=iters, replayed=replayed,
-                 warmup_iters=n_warm,
-                 capture_ms=graphed.capture_ms if replayed else None,
-                 warmup_device_ms_per_iter=None,
-                 warmup_enqueue_ms_per_iter=None)
-    if replayed:
-        entry["device_ms_per_iter"], entry["host_enqueue_ms_per_iter"] = \
-            rest.per_call(iters - n_warm)
-        entry["warmup_device_ms_per_iter"], \
-            entry["warmup_enqueue_ms_per_iter"] = first.per_call(n_warm)
-    else:
-        entry["device_ms_per_iter"], entry["host_enqueue_ms_per_iter"] = \
-            first.per_call(iters)
-    if device.type == "cuda":
-        entry["reserved_bytes"] = torch.cuda.memory_reserved(device)
-    entry["level_ms"] = (time.perf_counter() - t_level) * 1e3
-    LEVEL_LOG.append(entry)
+            device_ms, enqueue_ms = first.per_call(iters)
+        rec.set(device_ms_per_iter=device_ms,
+                host_enqueue_ms_per_iter=enqueue_ms)
+        if device.type == "cuda":
+            rec.set(reserved_bytes=torch.cuda.memory_reserved(device))
 
 
 def _bspline_weights(t: torch.Tensor) -> torch.Tensor:

@@ -133,7 +133,7 @@ def test_port_sources_and_chip_smoke_name_no_jax_import():
 
 # the JAX package's exports with no counterpart in the port: its
 # functional forward (the port's is TriPlanarNet) and its compilation cache
-NOT_EXPORTED = {"apply", "apply_branch", "enable_compilation_cache"}
+NOT_EXPORTED = {"apply", "apply_branch", "enable_compilation_cache", "timer"}
 
 
 def _exported(path: Path) -> set:

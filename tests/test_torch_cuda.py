@@ -633,19 +633,21 @@ def test_ffd_level_loss_and_gradient_card_match_cpu(cuda_device, cost, be):
 
 
 @pytest.mark.cuda
-def test_register_masks_on_the_card(cuda_device, tmp_path, monkeypatch):
+def test_register_masks_on_the_card(cuda_device, tmp_path):
     """register_masks with its default backend on a small phantom on the
-    card: the file set, majority prior overlap, and, while ``driver.REPORT``
-    is a dict, a report of every stage that sums to the call, with peak
-    device memory; with the hook off the device's peak statistics are left
-    alone."""
+    card: the file set, majority prior overlap, and, while spans record,
+    a ``register.*`` span of every stage, with its peak device memory,
+    whose spans (with their IO, mask, level and capture children) sum to
+    the call; with spans off nothing is recorded and the device's peak
+    statistics are left alone."""
     import shutil
 
     from scipy import ndimage
 
     from subcort_tpu_torch.io import NiftiImage, load_nii, save_nii
-    from subcort_tpu_torch.registration import (driver, make_synthetic_atlas,
+    from subcort_tpu_torch.registration import (make_synthetic_atlas,
                                                 register_masks)
+    from subcort_tpu_torch.utils import runtime
 
     atlas_dir = str(tmp_path / "atlases")
     template, atlas = make_synthetic_atlas(atlas_dir, shape=(36, 40, 34))
@@ -654,11 +656,13 @@ def test_register_masks_on_the_card(cuda_device, tmp_path, monkeypatch):
     (tmp_path / "subj").mkdir()
     scan = str(tmp_path / "subj" / "T1.nii.gz")
     save_nii(NiftiImage(subject), scan)
-    monkeypatch.setattr(driver, "REPORT", {})
-    seconds = register_masks(scan, atlas_dir=atlas_dir, device=cuda_device,
-                             tools_dir=str(tmp_path / "no_tools_here"))
-    report = driver.REPORT
-    monkeypatch.setattr(driver, "REPORT", None)
+    runtime.clear_records()
+    with runtime.recording():
+        seconds = register_masks(scan, atlas_dir=atlas_dir,
+                                 device=cuda_device,
+                                 tools_dir=str(tmp_path / "no_tools_here"))
+    recs = runtime.records()
+    report = runtime.self_seconds(recs)
     tmp = tmp_path / "subj" / "tmp"
     for f in ("transf.txt", "transform.nii", "rT1_template.nii.gz",
               "rT1d_template.nii.gz", "MNI_sub_probabilities.nii.gz",
@@ -670,21 +674,24 @@ def test_register_masks_on_the_card(cuda_device, tmp_path, monkeypatch):
     inter = ((probs[..., :14] > 0.2) & (want > 0.2)).sum()
     union = ((probs[..., :14] > 0.2) | (want > 0.2)).sum()
     assert inter / max(union, 1) > 0.5
-    for stage in ("affine", "ffd", "prior_warp"):
-        assert report[stage + "_s"] > 0
-        assert report[stage + "_peak_bytes"] > 0
-    assert report["io_s"] > 0 and report["mask_s"] > 0
-    spans = sum(v for k, v in report.items() if k.endswith("_s"))
+    stages = ("register.affine", "register.ffd", "register.prior_warp")
+    for stage in stages:
+        assert report[stage] > 0
+        (rec,) = [r for r in recs if r.name == stage]
+        assert rec.attrs["peak_bytes"] > 0
+    assert report["register.io"] > 0 and report["register.mask"] > 0
+    spans = sum(v for k, v in report.items() if k != "register.masks")
     assert 0.95 * seconds <= spans <= seconds
     assert register_masks(scan, atlas_dir=atlas_dir, backend="torch",
                           device=cuda_device) < 1.0
-    # hook off: nothing recorded, the process's peak statistics untouched
+    # spans off: nothing recorded, the process's peak statistics untouched
+    runtime.clear_records()
     shutil.rmtree(tmp)
     big = torch.empty(1 << 28, dtype=torch.uint8, device=cuda_device)
     peak = torch.cuda.max_memory_allocated(cuda_device)
     del big
     register_masks(scan, atlas_dir=atlas_dir, device=cuda_device)
-    assert driver.REPORT is None
+    assert runtime.records() == []
     assert torch.cuda.max_memory_allocated(cuda_device) >= peak
 
 
@@ -727,22 +734,29 @@ def _level(kind, cost, dof, device, iters=8):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,cost,dof", LEVEL_KINDS)
-def test_graphed_level_equals_eager_level(cuda_device, monkeypatch, kind,
-                                          cost, dof):
+def test_graphed_level_equals_eager_level(cuda_device, kind, cost, dof):
     """One optimiser level as a plain loop and as warm-up iterations plus
     replays of one captured iteration: parameters and every loss equal bit
-    for bit (gathers, einsums and matmuls, no atomics), and LEVEL_LOG says
-    which of the two ran."""
+    for bit (gathers, einsums and matmuls, no atomics), and the levels'
+    ``register.level`` spans say which of the two ran, the capture a
+    ``graph.capture`` span under the graphed one."""
     from subcort_tpu_torch.registration import torch_backend
+    from subcort_tpu_torch.utils import runtime
 
     level = _level(kind, cost, dof, cuda_device)
-    monkeypatch.setattr(torch_backend, "LEVEL_LOG", [])
-    eager, graphed = level(True), level(False)
-    log = torch_backend.LEVEL_LOG
+    runtime.clear_records()
+    with runtime.recording():
+        eager, graphed = level(True), level(False)
+    recs = runtime.records()
+    runtime.clear_records()
+    log = [r.attrs for r in recs if r.name == "register.level"]
     assert [e["replayed"] for e in log] == [False, True]
     assert log[1]["warmup_iters"] == torch_backend.WARMUP_ITERS
     assert log[1]["capture_ms"] > 0 and log[1]["device_ms_per_iter"] > 0
     assert log[0]["capture_ms"] is None and log[0]["warmup_iters"] == 0
+    (capture,) = [r for r in recs if r.name == "graph.capture"]
+    assert capture.parent == [r for r in recs
+                              if r.name == "register.level"][1].id
     for got, want in zip(graphed, eager):
         assert got.is_cuda and torch.equal(got, want)
 

@@ -27,7 +27,7 @@ from subcort_tpu_torch.config import Options
 from subcort_tpu_torch.engine.data import _configured_register
 from subcort_tpu_torch.io import NiftiImage, load_nii, save_nii
 from subcort_tpu_torch.registration import (RegistrationError, atlas,
-                                            driver, load_cpp_grid,
+                                            load_cpp_grid,
                                             register_masks,
                                             resample_through_affine,
                                             resample_through_cpp,
@@ -35,6 +35,7 @@ from subcort_tpu_torch.registration import (RegistrationError, atlas,
 from subcort_tpu_torch.registration.driver import (DEFAULT_ATLAS_DIR,
                                                    _resolve_atlas_dir)
 from subcort_tpu_torch.registration.torch_backend import CppGrid
+from subcort_tpu_torch.utils import runtime
 
 torch.set_num_threads(1)
 
@@ -507,13 +508,15 @@ def _structure_dice(a, b):
     return float(np.mean(dices))
 
 
-def test_register_masks_torch_backend(tmp_path, monkeypatch):
+def test_register_masks_torch_backend(tmp_path):
     """backend='torch' on the CPU with no native tools (tools_dir points at
     an empty directory): the whole file set, majority prior overlap
     (tests/test_registration.py:436), the stage cache, and priors that
     agree with the JAX backend's on the same scan (structure Dice >= 0.95
-    between the two). While ``driver.REPORT`` is a dict the call reports
-    its stages, which sum to the call; a cached call reports none."""
+    between the two). While spans record, the call is a
+    ``register.masks`` span over its stages, whose spans (with their IO,
+    mask and ``register.level`` children) sum to the call; a cached call
+    opens no stage."""
     atlas_dir = str(tmp_path / "atlases")
     template, at = atlas.make_synthetic_atlas(atlas_dir, shape=(36, 40, 34))
     shift = (1.5, -1.0, 0.5)
@@ -523,16 +526,23 @@ def test_register_masks_torch_backend(tmp_path, monkeypatch):
     (tmp_path / "jax").mkdir()
     jscan = _save(tmp_path / "jax", "T1.nii.gz", subject)
 
-    assert driver.REPORT is None
-    monkeypatch.setattr(driver, "REPORT", {})
-    seconds = register_masks(scan, atlas_dir=atlas_dir, backend="torch",
-                             device="cpu",
-                             tools_dir=str(tmp_path / "no_tools_here"))
-    report = driver.REPORT
-    assert sorted(report) == ["affine_s", "ffd_s", "io_s", "mask_s",
-                              "prior_warp_s"]
-    assert all(v > 0 for v in report.values())
-    assert 0.95 * seconds <= sum(report.values()) <= seconds
+    runtime.clear_records()
+    with runtime.recording():
+        seconds = register_masks(scan, atlas_dir=atlas_dir, backend="torch",
+                                 device="cpu",
+                                 tools_dir=str(tmp_path / "no_tools_here"))
+    recs = runtime.records()
+    report = runtime.self_seconds(recs)
+    stages = ["register.affine", "register.ffd", "register.io",
+              "register.mask", "register.prior_warp"]
+    assert sorted(report) == sorted(stages + ["register.level",
+                                              "register.masks"])
+    assert all(report[k] > 0 for k in stages)
+    inside = sum(v for k, v in report.items() if k != "register.masks")
+    assert 0.95 * seconds <= inside <= seconds
+    assert {r.request for r in recs} == {recs[-1].request}
+    # on the CPU no stage reads the device's peak memory
+    assert not any("peak_bytes" in r.attrs for r in recs)
     tmp = tmp_path / "subj" / "tmp"
     for f in FILES:
         assert (tmp / f).exists(), f
@@ -548,10 +558,12 @@ def test_register_masks_torch_backend(tmp_path, monkeypatch):
                                rtol=1e-5)
 
     # stage cache: a second call is a no-op
-    monkeypatch.setattr(driver, "REPORT", {})
-    assert register_masks(scan, atlas_dir=atlas_dir, backend="torch",
-                          device="cpu") < 1.0
-    assert driver.REPORT == {}
+    runtime.clear_records()
+    with runtime.recording():
+        assert register_masks(scan, atlas_dir=atlas_dir, backend="torch",
+                              device="cpu") < 1.0
+    assert [r.name for r in runtime.records()] == ["register.masks"]
+    runtime.clear_records()
 
     jax_register_masks(jscan, atlas_dir=atlas_dir, backend="jax",
                        tools_dir=str(tmp_path / "no_tools_here"))
