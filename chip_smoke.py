@@ -149,8 +149,16 @@ and the exit code is non-zero:
        run's and both TF32 flags are as before; seconds of both, and
        whether the second scan's labels agree between them;
    (c) post_process_segmentation of the phase-7 labels with
-       cc_backend = "device" and "scipy": array-equal, no fallback warning;
-       seconds of both;
+       cc_backend = "device" and "scipy": array-equal, no fallback warning,
+       a filter kernel launch per device call; seconds of both; then the
+       component filter's table on MNI-sized noise (make_scan's ROI, a
+       uniform class 0..14 on each candidate of the 10-dilated ROI; the
+       benchmark's scan_dense labels are as noisy): the kernel's device ms
+       at the foreground crop (CUDA events) beside its bound
+       (FILTER_BYTES_PER_VOXEL a voxel over 3.35 TB/s) and its plain
+       version's on the card, and the whole post_process_segmentation
+       call, scipy against the card (host clock, median of 5), all
+       array-equal;
    (d) one float32 train step at patch 40 (dropout 0) on the phase-11
        stack, every subject's 8 corner centers in the batch of 128: finite,
        no gather launch, loss and BN EMA card vs CPU within 1e-5;
@@ -1370,6 +1378,78 @@ def json_lines(text: str) -> list:
             if line.startswith("{")]
 
 
+def filter_table(torch, device, smi, seed: int = 0) -> dict:
+    """Phase 14(c)'s table of the component filter on MNI-sized noise (see
+    the module docstring); returns its numbers."""
+    from scipy import ndimage
+
+    from subcort_tpu_torch.bench.scan import make_scan
+    from subcort_tpu_torch.engine import postprocess
+    from subcort_tpu_torch.ops import connected
+
+    rng = np.random.default_rng(seed)
+    _, _, roi = make_scan(rng)
+    cand = ndimage.binary_dilation(roi, iterations=10)
+    labels = np.zeros(roi.shape, np.uint8)
+    labels[cand] = rng.integers(0, 15, int(cand.sum()))
+    box = postprocess._foreground_box(labels)
+    crop = torch.from_numpy(np.ascontiguousarray(labels[box])).to(device)
+    crop_atlas = torch.from_numpy(np.ascontiguousarray(roi[box])).to(device)
+    n = crop.numel()
+    kernel = connected.filter_components(crop, crop_atlas, 15)
+    plain = connected.filter_components_plain(crop, crop_atlas, 15)
+    check(torch.equal(kernel, plain), "filter kernel == its plain version")
+    kernel_ms = time_ms(torch, lambda: connected.filter_components(
+        crop, crop_atlas, 15))
+    plain_ms = time_ms(torch, lambda: connected.filter_components_plain(
+        crop, crop_atlas, 15), iters=5)
+    bound_ms = n * connected.FILTER_BYTES_PER_VOXEL / HBM_BYTES_PER_S * 1e3
+    # device us of each of the five passes, by torch.profiler over 20 calls
+    passes = ("tile_merge", "face_merge", "count", "score", "paint")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            connected.filter_components(crop, crop_atlas, 15)
+        torch.cuda.synchronize()
+    pass_us = dict.fromkeys(passes, 0.0)
+    for event in prof.key_averages():
+        for name in passes:
+            if f"::{name}(" in event.key or f"{len(name)}{name}E" in event.key:
+                pass_us[name] += getattr(event, "device_time_total",
+                                         getattr(event, "cuda_time_total",
+                                                 0.0)) / 20
+    walls, results = {}, {}
+    for backend in ("scipy", "device") * 6:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[backend] = postprocess.post_process_segmentation(
+            "", labels, atlas_mask=roi, cc_backend=backend, device=device)
+        walls.setdefault(backend, []).append(time.perf_counter() - t0)
+    check(np.array_equal(results["device"], results["scipy"]),
+          "the filter on the card == scipy on MNI-sized noise")
+    call_s = {k: float(np.median(v[1:])) for k, v in walls.items()}
+    print(f"{smi}: component filter on MNI-sized noise, crop "
+          f"{tuple(crop.shape)} = {n} voxels, "
+          f"{int((labels != 0).sum())} labelled")
+    print("| what | ms |\n|---|---|")
+    print(f"| kernel (5 launches, CUDA events, 50 calls) | {kernel_ms:.4f} |")
+    print(f"| its bound ({connected.FILTER_BYTES_PER_VOXEL} B a voxel at "
+          f"3.35 TB/s) | {bound_ms:.4f} |")
+    print(f"| its plain version on the card | {plain_ms:.3f} |")
+    print("| the kernel's passes (torch.profiler, 20 calls) | "
+          + ", ".join(f"{k} {v / 1e3:.4f}" for k, v in pass_us.items())
+          + " |")
+    print(f"| post_process_segmentation, scipy (host clock, median of 5) | "
+          f"{call_s['scipy'] * 1e3:.3f} |")
+    print(f"| post_process_segmentation, the card (host clock, median of 5) "
+          f"| {call_s['device'] * 1e3:.3f} |")
+    return {"filter_voxels": n, "filter_kernel_ms": kernel_ms,
+            "filter_bound_ms": bound_ms, "filter_plain_ms": plain_ms,
+            "filter_pass_us": pass_us,
+            "filter_call_scipy_s": call_s["scipy"],
+            "filter_call_card_s": call_s["device"]}
+
+
 def cli_phase(torch, device, smi, image, atlas, roi, labels, params,
               stack, atlas_dir: Path) -> dict:
     """Phase 14: the command line on the card (see the module docstring)."""
@@ -1385,7 +1465,7 @@ def cli_phase(torch, device, smi, image, atlas, roi, labels, params,
     from subcort_tpu_torch.engine.infer import DEFAULT_CHUNK
     from subcort_tpu_torch.engine.postprocess import post_process_segmentation
     from subcort_tpu_torch.engine.train import ADAM, train_step
-    from subcort_tpu_torch.ops import gather_kernel
+    from subcort_tpu_torch.ops import connected, gather_kernel
     from subcort_tpu_torch.ops.gather_kernel import (gather_triplanar_cuda,
                                                      prepare_gather_volume)
     from subcort_tpu_torch.registration import make_synthetic_cohort
@@ -1593,6 +1673,7 @@ def cli_phase(torch, device, smi, image, atlas, roi, labels, params,
         # phase-7 labels of the phase-4 scan
         mask = roi.astype(np.uint8)
         results, times = {}, {}
+        launches_before = connected.FILTER_LAUNCHES
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             for backend in ("scipy", "device", "scipy", "device"):
@@ -1608,12 +1689,15 @@ def cli_phase(torch, device, smi, image, atlas, roi, labels, params,
         check(not fallback, f"device CC converged: {fallback}")
         check(np.array_equal(results["device"], results["scipy"]),
               "cc_backend = device == scipy on the MNI-sized labels")
+        check(connected.FILTER_LAUNCHES == launches_before + 2,
+              "one filter kernel launch per cc_backend = device call")
         print(f"post_process_segmentation on the phase-4 scan's labels "
               f"({int((labels != 0).sum())} labelled voxels): device CC "
               f"{times['device']} s, scipy {times['scipy']} s (cold, warm); "
               f"array-equal, no fallback")
         out.update(cli_cc_device_s=times["device"],
                    cli_cc_scipy_s=times["scipy"])
+        out.update(filter_table(torch, device, smi))
 
         # (d) a train step at patch 40 on the phase-11 stack, border
         # centers among the batch: the plain gather on the card

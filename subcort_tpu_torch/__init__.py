@@ -25,7 +25,9 @@ or by the C++ tools on the CPU where the caller asks for them
 The command line is ``python -m subcort_tpu_torch.cli`` (train, infer,
 run, evaluate, loo, import-atlas), as the JAX package's; leave-one-out is
 ``engine.loo.run_loo``; ``folder_pipeline = True`` pipelines the folder
-sweep and ``cc_backend = device`` labels connected components on the card.
+sweep, and the post-process filters every class's connected components
+in one CUDA kernel on the card (``cc_backend = auto``, the default; scipy
+on the CPU).
 ``data_parallel > 1`` runs over several devices (``parallel/``):
 inference from one process, one host thread per device; training one
 process per device, each step the one-process step on the global batch;

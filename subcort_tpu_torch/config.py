@@ -5,10 +5,12 @@ subcort_tpu/config.py (its ``Options``, ``load_options`` and
 ``print_options``): the reference's ``configuration.cfg`` contract with the
 same sections, key names and defaults (cnn_cort/load_options.py:11-59,
 configuration.cfg:1-23). tests/test_torch_config.py holds the two to the
-same options, apart from one default: ``reg_backend`` is ``"torch"`` here
+same options, apart from two defaults: ``reg_backend`` is ``"torch"`` here
 (registration on the device ``mode`` names) where the JAX package's is
 ``"native"`` (the C++ tools on the CPU), because the port's entry points run
-on the card unless the caller asks for the CPU. Booleans arrive as the strings ``'True'``/``'False'`` and are
+on the card unless the caller asks for the CPU; and ``cc_backend`` is
+``"auto"`` (the post-process's component filter on the card where the
+engine runs on one, else scipy) where the JAX package's is ``"scipy"``. Booleans arrive as the strings ``'True'``/``'False'`` and are
 read with the same tolerance; a dict-style ``options['patch_size']`` view
 sits beside the typed fields.
 
@@ -87,12 +89,12 @@ class Options(Mapping[str, Any]):
     dilate_crop_iters: int = 10     # base.py:369 binary_dilation(iterations=10)
     prior_dtype: str = "uint16"     # host->device prior wire: uint16 (fixed-point, most accurate+fastest) | float16 | uint8 | float32
     probs_dtype: str = "uint8"      # device->host probability readback wire: uint8 (1/255-step fixed-point, half the bytes — labels are computed on device and unaffected) | float16 | float32 for full-precision prob maps
-    cc_backend: str = "scipy"       # post-process connected components: scipy (host) | device (min-label propagation on the engine's device)
+    cc_backend: str = "auto"        # post-process component filter: auto (device where the engine's device is a card, else scipy; the default, and a default that differs from the JAX package's "scipy") | scipy (host, per class) | device (every class at once: the CUDA kernel on a card, min-label propagation on the CPU)
     folder_pipeline: bool = False   # pipelined folder sweep: one loader thread prefetches the next scan's host prep, one writer thread post-processes and writes the last (identical files; pays only where the host has spare cores)
     fcn_max_bbox_voxels: int = 6_000_000  # dense-evaluator sub-slab budget
     fcn_spmd: bool = True           # multi-device dense engine: one equal sub-slab of the candidate bbox per device (False: sub-bboxes of at most bbox/devices voxels dealt round-robin)
     debug_nans: bool = False        # raise FloatingPointError on the first NaN in a loss, logits or probabilities read back (debug only; utils.runtime.enable_nan_checks)
-    reg_backend: str = "torch"      # registration: torch (on the device ``mode`` names; the default, and the one default that differs from the JAX package's "native") | native (the C++ tools on the CPU, opt-in); the JAX package's "jax" raises here
+    reg_backend: str = "torch"      # registration: torch (on the device ``mode`` names; the default, and a default that differs from the JAX package's "native") | native (the C++ tools on the CPU, opt-in); the JAX package's "jax" raises here
     reg_similarity: str = "nmi"     # deformable-stage cost: nmi (default — the reference's reg_f3d is NiftyReg's NMI-driven FFD, base.py:516-521) | ssd (opt-in; wins on same-protocol pairs)
     train_dtype: str = "float32"    # training forward/backward: float32 | bfloat16 (f32 master)
     intensity_augment: float = 0.0  # train-time intensity-robustness augmentation strength S (0 = off = reference-exact; 2.0 = validated sweet spot, see ROBUSTQUAL_AUG_r05.json); per-sample gain/shift shared across views + per-voxel noise — hardens the CNN against bias-field/remap/Rician covariate shift (see engine/train.py::_augment_intensity)
@@ -186,7 +188,7 @@ def load_options(user_config: configparser.RawConfigParser | str | os.PathLike) 
         dilate_crop_iters=int(opt("tpu", "dilate_crop_iters", 10, int)),
         prior_dtype=opt("tpu", "prior_dtype", "uint16").strip(),
         probs_dtype=opt("tpu", "probs_dtype", "uint8").strip(),
-        cc_backend=opt("tpu", "cc_backend", "scipy").strip(),
+        cc_backend=opt("tpu", "cc_backend", "auto").strip(),
         folder_pipeline=_as_bool(opt("tpu", "folder_pipeline", False)),
         fcn_max_bbox_voxels=int(opt("tpu", "fcn_max_bbox_voxels",
                                     6_000_000, int)),

@@ -23,8 +23,9 @@ registered first (``register_masks`` under ``reg_backend`` and
 ``reg_similarity``; ``reg_backend = torch`` runs it on the engine's device).
 ``folder_pipeline = True`` pipelines ``segment_folder`` (the next scan's
 host prep on a loader thread, the last scan's post-process and writes on a
-writer thread); ``cc_backend = device`` labels the post-process's
-connected components on the engine's device. ``data_parallel > 1``
+writer thread); ``cc_backend`` (``auto``: the CUDA kernel where the
+engine's device is a card, else scipy) says where the post-process
+filters connected components. ``data_parallel > 1``
 segments each scan over several devices from this process, one host
 thread per device (``segment_volume(devices=...)``: the patch engine's
 centers in parts of whole chunks, the dense engine's bbox in one sub-slab

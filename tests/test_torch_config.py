@@ -4,9 +4,11 @@ package's, and the port's import isolation from the JAX package.
 ``subcort_tpu_torch.config`` keeps a copy of the reference's
 ``configuration.cfg`` contract so that the port imports nothing of the JAX
 package; the two must read every file to the same options, apart from the
-one default the port changes on purpose: ``reg_backend`` is ``"torch"``
+two defaults the port changes on purpose: ``reg_backend`` is ``"torch"``
 (registration on the card) where the JAX package's is ``"native"`` (the C++
-tools on the CPU).
+tools on the CPU), and ``cc_backend`` is ``"auto"`` (the component filter
+on the card where the engine runs on one) where the JAX package's is
+``"scipy"``.
 """
 
 import ast
@@ -48,10 +50,10 @@ dilate_crop_iters = 3
 
 def _as_port(jax_options) -> dict:
     """The JAX package's options as the port must read them: equal, apart
-    from the ``reg_backend`` default."""
+    from the ``reg_backend`` and ``cc_backend`` defaults."""
     want = dataclasses.asdict(jax_options)
-    assert want["reg_backend"] == "native"
-    return dict(want, reg_backend="torch")
+    assert want["reg_backend"] == "native" and want["cc_backend"] == "scipy"
+    return dict(want, reg_backend="torch", cc_backend="auto")
 
 
 @pytest.mark.parametrize("source", ["example", "custom", "empty"])
@@ -63,7 +65,7 @@ def test_load_options_matches_jax_package(tmp_path, source):
         path.write_text(CUSTOM if source == "custom" else "[model]\n")
     got, want = load_options(path), jax_load_options(path)
     assert isinstance(got, Options)
-    if source == "example":  # names reg_backend itself: read alike
+    if source == "example":  # names both backends itself: read alike
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
     else:
         assert dataclasses.asdict(got) == _as_port(want)
@@ -82,7 +84,8 @@ def test_options_defaults_keys_and_dump_match_jax_package(capsys):
         got["no_such_key"]
     print_options(Options(mode="cpu"))
     mine = capsys.readouterr().out
-    jax_print_options(JaxOptions(mode="cpu", reg_backend="torch"))
+    jax_print_options(JaxOptions(mode="cpu", reg_backend="torch",
+                                 cc_backend="auto"))
     assert mine == capsys.readouterr().out
 
 

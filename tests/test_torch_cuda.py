@@ -1,7 +1,8 @@
 """Card-only tests of the port: its CUDA gather kernel, the engines, the
 train step (at patch 32 and at patch 40, which takes the plain gather), the
 on-device registration and connected components on the card against the
-CPU, registration levels replayed from a CUDA graph against the plain loop
+CPU, the post-process's component filter kernel against scipy (MNI-sized
+noise, a snake past the plain version's sweep cap, ties), registration levels replayed from a CUDA graph against the plain loop
 (also captured on a second thread while the main one segments), the train
 multistep and ``Trainer.fit`` replaying one captured step against the
 plain loop (float32, bfloat16, patch 40, a learning-rate schedule, a
@@ -541,7 +542,146 @@ def test_device_cc_card_matches_scipy(cuda_device, seed, p):
     np.testing.assert_array_equal(
         post_process_segmentation("", labels, atlas_mask=atlas_mask,
                                   cc_backend="device", device=cuda_device),
-        post_process_segmentation("", labels, atlas_mask=atlas_mask))
+        post_process_segmentation("", labels, atlas_mask=atlas_mask,
+                                  cc_backend="scipy"))
+
+
+def _mni_noise(seed):
+    """MNI-sized noisy labels: a uniform class 0..14 on each candidate of
+    make_scan's ROI dilated 10 times (the benchmark's scan_dense labels
+    are as noisy), and the ROI as the atlas mask."""
+    from scipy import ndimage
+
+    from subcort_tpu_torch.bench.scan import make_scan
+
+    rng = np.random.default_rng(seed)
+    _, _, roi = make_scan(rng)
+    cand = ndimage.binary_dilation(roi, iterations=10)
+    labels = np.zeros(roi.shape, np.uint8)
+    labels[cand] = rng.integers(0, 15, int(cand.sum()))
+    return labels, roi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_filter_kernel_matches_scipy_on_mni_noise(cuda_device, seed):
+    """The component filter's kernel equals the scipy filter bit for bit
+    on MNI-sized noise, through the post-process (``"auto"``, the default,
+    on the card) and on the foreground crop against its plain version on
+    the card; each call that reaches the kernel counts one launch."""
+    from subcort_tpu_torch.engine import postprocess
+    from subcort_tpu_torch.ops import connected
+
+    labels, roi = _mni_noise(seed)
+    want = postprocess.post_process_segmentation(
+        "", labels, atlas_mask=roi, cc_backend="scipy")
+    before = connected.FILTER_LAUNCHES
+    got = postprocess.post_process_segmentation("", labels, atlas_mask=roi,
+                                                device=cuda_device)
+    torch.cuda.synchronize()
+    assert connected.FILTER_LAUNCHES == before + 1
+    np.testing.assert_array_equal(got, want)
+    got = postprocess.post_process_segmentation("", labels, atlas_mask=roi)
+    torch.cuda.synchronize()
+    assert connected.FILTER_LAUNCHES == before + 2
+    np.testing.assert_array_equal(got, want)
+    box = postprocess._foreground_box(labels)
+    crop = torch.from_numpy(np.ascontiguousarray(labels[box])).to(cuda_device)
+    crop_atlas = torch.from_numpy(np.ascontiguousarray(roi[box])).to(
+        cuda_device)
+    kernel = connected.filter_components(crop, crop_atlas, 15)
+    torch.cuda.synchronize()
+    assert connected.FILTER_LAUNCHES == before + 3
+    assert kernel.is_cuda and kernel.dtype == torch.uint8
+    assert torch.equal(kernel, connected.filter_components_plain(
+        crop, crop_atlas, 15))
+    np.testing.assert_array_equal(kernel.cpu().numpy(), want[box])
+
+
+@pytest.mark.cuda
+def test_filter_kernel_serpentine_beyond_the_sweep_cap(cuda_device):
+    """A snake of about 4,200 voxels, longer than the plain version's
+    2,048-sweep cap (which warns and falls back to scipy), touching the
+    atlas at its far end only, against a straight bar with more voxels
+    and no atlas voxel: the kernel keeps the snake, as scipy does."""
+    import warnings
+
+    from subcort_tpu_torch.engine import postprocess
+    from subcort_tpu_torch.ops import connected
+
+    shape = (4, 64, 130)
+    labels = np.zeros(shape, np.uint8)
+    snake = np.zeros(shape[1:], bool)
+    for row in range(0, shape[1], 2):
+        snake[row, :] = True
+        if row + 1 < shape[1]:
+            snake[row + 1, -1 if (row // 2) % 2 == 0 else 0] = True
+    labels[1][snake] = 2
+    labels[3, 1:60, 1:80] = 2
+    labels[3, 1:60, 90:] = 5
+    atlas = np.zeros(shape, bool)
+    atlas[1, -1, :3] = True
+    atlas[3, 30:, 100:] = True
+    want = postprocess.post_process_segmentation(
+        "", labels, atlas_mask=atlas, cc_backend="scipy")
+    np.testing.assert_array_equal(want[1] == 2, snake)
+    before = connected.FILTER_LAUNCHES
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = postprocess.post_process_segmentation(
+            "", labels, atlas_mask=atlas, cc_backend="device",
+            device=cuda_device)
+    torch.cuda.synchronize()
+    assert connected.FILTER_LAUNCHES == before + 1
+    np.testing.assert_array_equal(got, want)
+    with pytest.warns(UserWarning, match="sweep cap"):
+        plain = connected.filter_components_plain(
+            torch.from_numpy(labels).to(cuda_device),
+            torch.from_numpy(atlas).to(cuda_device), 15)
+    np.testing.assert_array_equal(plain.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ties", "beyond_classes", "one_voxel",
+                                  "empty", "int16_uint8_atlas",
+                                  "two_classes"])
+def test_filter_kernel_edge_cases(cuda_device, case):
+    """Ties of overlap and of size (the first in raster order wins),
+    labels that are no class, a single voxel, no foreground, int16 labels
+    with a uint8 atlas and two classes: the card equals scipy."""
+    from subcort_tpu_torch.engine import postprocess
+
+    shape, num_classes = (21, 18, 23), 15
+    rng = np.random.default_rng(3)
+    labels = np.zeros(shape, np.uint8)
+    atlas = np.zeros(shape, bool)
+    atlas[4:15, 3:12, 5:17] = True
+    if case == "ties":
+        labels[4, 3:5, 5:7] = 3         # 4 atlas voxels, first: wins
+        labels[9, 10:14, 15:19] = 3     # 16 voxels, 4 in the atlas
+        labels[1, 1, 1:4] = 4           # no atlas voxel; 3 voxels, first
+        labels[19, 1, 1:4] = 4          # ties it
+        labels[18, 16, 20] = 4
+    elif case == "beyond_classes":
+        labels = rng.integers(0, 256, shape).astype(np.uint8)
+        labels[rng.random(shape) < 0.3] = 0
+    elif case == "one_voxel":
+        labels[7, 7, 7] = 14
+    elif case == "int16_uint8_atlas":
+        labels = rng.integers(-3, 40, shape).astype(np.int16)
+        atlas = atlas.astype(np.uint8) * 7
+    elif case == "two_classes":
+        num_classes = 2
+        labels = (rng.random(shape) < 0.4).astype(np.uint8)
+    want = postprocess.post_process_segmentation(
+        "", labels, atlas_mask=atlas, num_classes=num_classes,
+        cc_backend="scipy")
+    got = postprocess.post_process_segmentation(
+        "", labels, atlas_mask=atlas, num_classes=num_classes,
+        cc_backend="device", device=cuda_device)
+    assert got.dtype == labels.dtype
+    np.testing.assert_array_equal(got, want)
+    assert (got != 0).any() == (case != "empty")
 
 
 # ------------------------------------------------------------- registration
