@@ -238,6 +238,15 @@ and the exit code is non-zero:
    the patch engine's chunks (25), the candidate count and FLOP count of
    the MNI scan, peak_flops_assumed from bench/scan.py's table
    (989.4e12 on the H100 SXM);
+18. FastSurferCNN's multi-view path (engine/views.py) at the published
+   widths (7 x 256 x 256 thick slices, 64 filters, 5x5, 79 / 51 classes)
+   on the phase-4 scan, with the benchmark's seeded weights
+   (benchmark/weights_fastsurfer.py, calibrated on that scan): segment_views
+   warm and timed, the labels' shape and classes, 768 slices counted; then
+   one batch of 16 axial thick slices, the program's against the plain
+   reference's (benchmark/reference/fastsurfer.py): the slices bit-equal,
+   the logits' argmax equal on >= 0.999 of the pixels and their median
+   difference under 1e-5 of the logits' range;
 13. printed last: one JSON line of kernel facts (with dp_* keys: the
    two-device patch launches, launches per rank, the backends; bench_*
    keys: each benchmark's launches, steps + eval batches and seconds;
@@ -2495,6 +2504,56 @@ def scan_phase(torch, device, kind, image, atlas, roi, rng, params,
     return out
 
 
+def views_phase(torch, device, image) -> dict:
+    """Phase 18: FastSurferCNN's multi-view path at the published widths
+    (see the module docstring)."""
+    from benchmark import weights_fastsurfer
+    from benchmark.reference import fastsurfer as ref
+    from subcort_tpu_torch.config import exact_float32
+    from subcort_tpu_torch.engine import views
+    from subcort_tpu_torch.models.fastsurfer import FastSurferViews
+
+    t_phase = time.perf_counter()
+    cfg = json.loads((Path(__file__).resolve().parent / "benchmark" /
+                      "configs" / "fastsurfer_cnn.json").read_text())
+    params = weights_fastsurfer.make_weights(cfg, 18, device)
+    weights_fastsurfer.calibrate(params, cfg, image, device, 18)
+    nets = FastSurferViews.from_params(params, device)
+    views.segment_views(nets, image, (1, 1, 1))
+    before = views.SLICES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels = views.segment_views(nets, image, (1, 1, 1))
+    seconds = time.perf_counter() - t0
+    check(labels.shape == image.shape and labels.dtype == np.uint8
+          and labels.max() <= 14, f"segment_views labels {labels.shape}")
+    check(views.SLICES - before == 3 * views.SIZE,
+          f"segment_views forwarded {views.SLICES - before} slices")
+    present = np.unique(labels)
+    vol = torch.from_numpy(ref.conform(image)[0]).to(device).float() / 255.0
+    with torch.no_grad(), exact_float32():
+        mine = views._thick_slices(views.view_volume(vol, 2), 120, 136)
+        want = ref.thick_slices(vol, 2, 120, 136)
+        check(torch.equal(mine, want), "thick slices bit-equal to the "
+              "reference's")
+        got = nets.axial(mine)
+        ref_logits = ref.forward(params["axial"], want)
+    agree = float((got.argmax(1) == ref_logits.argmax(1)).float().mean())
+    rel = float((got - ref_logits).abs().median()
+                / ref_logits.abs().max())
+    print(f"segment_views at the published widths: {seconds:.3f} s a scan, "
+          f"{len(present)} classes present ({present.tolist()}); one axial "
+          f"batch of 16 against the reference: argmax agreement {agree:.6f}, "
+          f"median |difference| {rel:.3e} of the logits' range")
+    check(agree >= 0.999, f"axial batch argmax agreement {agree} >= 0.999")
+    check(rel < 1e-5, f"axial batch median difference {rel} < 1e-5")
+    out = {"views_s": seconds, "views_batch_agreement": agree,
+           "views_batch_median_rel": rel,
+           "views_phase_s": time.perf_counter() - t_phase}
+    print(f"phase 18: {out['views_phase_s']:.3f} s")
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2870,6 +2929,9 @@ def main() -> None:
     # 17. the headline benchmark
     bench.update(scan_phase(torch, device, kind, image, atlas, roi, scan_rng,
                             params, spec))
+
+    # 18. FastSurferCNN's multi-view path
+    bench.update(views_phase(torch, device, image))
 
     # 13. results
     print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all")

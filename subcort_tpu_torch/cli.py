@@ -108,6 +108,20 @@ def _evaluate(options) -> None:
                           "n_subjects": len(all_means)}))
 
 
+def _load_weights(weights_path: str, experiment: str, load_theano):
+    """The experiment's weights: ``<experiment>.pkl`` (the tri-planar
+    network, Theano format), else ``<experiment>.pt``, FastSurfer state
+    dicts saved by ``torch.save({"axial": ..., "coronal": ...,
+    "sagittal": ...})``, which the engine runs by the multi-view path."""
+    stem = os.path.join(weights_path, experiment, experiment)
+    if os.path.exists(stem + ".pkl") or not os.path.exists(stem + ".pt"):
+        print("--> loading weights from", stem + ".pkl")
+        return load_theano(stem + ".pkl")
+    import torch
+    print("--> loading FastSurfer weights from", stem + ".pt")
+    return torch.load(stem + ".pt", map_location="cpu", weights_only=True)
+
+
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
 
@@ -183,10 +197,8 @@ def main(argv=None) -> int:
             trainer.fit(index)
             params = trainer.params
         else:
-            ckpt = os.path.join(args.weights_path, options["experiment"],
-                                options["experiment"] + ".pkl")
-            print("--> loading weights from", ckpt)
-            params = load_theano_checkpoint(ckpt)
+            params = _load_weights(args.weights_path, options["experiment"],
+                                   load_theano_checkpoint)
 
         if args.command in ("infer", "run"):
             engine = SegmentationEngine(params, options)

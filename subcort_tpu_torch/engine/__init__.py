@@ -1,5 +1,6 @@
 """Workload layer: inference by the dense evaluator or the patch engine,
-training, and the leave-one-out driver."""
+or by FastSurferCNN's three views, training, and the leave-one-out
+driver."""
 
 from subcort_tpu_torch.engine.data import (  # noqa: F401
     Subject,
@@ -32,6 +33,7 @@ from subcort_tpu_torch.engine.metrics import (  # noqa: F401
 from subcort_tpu_torch.engine.postprocess import (  # noqa: F401
     post_process_segmentation,
 )
+from subcort_tpu_torch.engine.views import segment_views  # noqa: F401
 from subcort_tpu_torch.engine.train import (  # noqa: F401
     Trainer,
     train_split_stratified,

@@ -46,6 +46,17 @@ Output contract as the reference's (base.py:445-455):
 steps by default, ``probs_dtype = float32`` for exact ones),
 ``out_subcortical_seg_prec.nii.gz`` (post-processed) or
 ``out_subcortical_rawseg.nii.gz``, each with the input's affine.
+
+**FastSurferCNN.** ``SegmentationEngine`` handed FastSurfer state dicts
+(``{"axial": ..., "coronal": ..., "sagittal": ...}``) holds the three view
+networks (:class:`~subcort_tpu_torch.models.fastsurfer.FastSurferViews`),
+and ``test_scan`` and ``segment_folder`` then run the multi-view path
+(:func:`~subcort_tpu_torch.engine.views.segment_views`): no atlas,
+registration, candidates or priors; ``post_process`` keeps each class's
+largest component (a whole-volume mask). The network decides the path:
+the options this path cannot run (``out_probabilities``,
+``data_parallel > 1``, a ``compute_dtype`` other than float32,
+``bugcompat_postprocess_argmax``) raise a :class:`ValueError`.
 """
 
 from __future__ import annotations
@@ -66,7 +77,10 @@ from subcort_tpu_torch.engine.data import _configured_register
 from subcort_tpu_torch.engine.forward import forward_centers
 from subcort_tpu_torch.engine.metrics import ScanStats
 from subcort_tpu_torch.engine.postprocess import post_process_segmentation
+from subcort_tpu_torch.engine.views import segment_views, zooms_of
 from subcort_tpu_torch.io import NiftiImage, load_nii, save_nii
+from subcort_tpu_torch.models.fastsurfer import (FastSurferViews,
+                                                 is_view_params)
 from subcort_tpu_torch.models.fcn import HALF, RF, fcn_forward_slab
 from subcort_tpu_torch.models.triplanar import (DEFAULT_SPEC, Params,
                                                 TriPlanarNet, TriPlanarSpec,
@@ -87,6 +101,22 @@ DEFAULT_CHUNK = 8192
 def check_slice_options(options: Options) -> None:
     """Raise for an unknown registration option, before any work."""
     check_registration(options["reg_backend"], options["reg_similarity"])
+
+
+def check_views_options(options: Options) -> None:
+    """Raise ``ValueError`` for an option the multi-view path cannot run."""
+    if options.bool("out_probabilities"):
+        raise ValueError("out_probabilities: the multi-view path writes "
+                         "labels only")
+    if int(options["data_parallel"]) > 1:
+        raise ValueError("data_parallel > 1: the multi-view path runs on "
+                         "one device")
+    if options["compute_dtype"] != "float32":
+        raise ValueError(f"compute_dtype {options['compute_dtype']!r}: the "
+                         "multi-view path runs in float32")
+    if options.bool("bugcompat_postprocess_argmax"):
+        raise ValueError("bugcompat_postprocess_argmax: the multi-view path "
+                         "has no atlas mask to score components against")
 
 
 def net_in_dtype(net: TriPlanarNet, compute_dtype: str) -> TriPlanarNet:
@@ -652,10 +682,61 @@ def test_scan(net: TriPlanarNet, scan_path: str, options: Options,
     ``infer.segment_volume`` and ``infer.write`` under it; the pipelined
     sweep's load and write run on their threads under the same request.
     """
+    if isinstance(net, FastSurferViews):
+        check_views_options(options)
+        with span("infer.scan", _subject(scan_path)):
+            return _test_scan_views(net, scan_path, options, device,
+                                    _inputs, _writer)
     check_slice_options(options)
     with span("infer.scan", _subject(scan_path)):
         return _test_scan(net, scan_path, options, register_fn, device,
                           devices, _inputs, _writer)
+
+
+def _load_views_inputs(scan_path: str, request=None):
+    """The multi-view path's host prep: the T1 (``infer.load``)."""
+    with span("infer.load", request):
+        t1 = load_nii(scan_path)
+        return t1, np.asarray(t1.data)
+
+
+def _test_scan_views(nets, scan_path, options, device, _inputs,
+                     _writer) -> float:
+    """:func:`test_scan` by the three view networks, inside its span."""
+    s_time = time.time()
+    image_dir, _ = os.path.split(scan_path)
+    t1, image = (_inputs if _inputs is not None
+                 else _load_views_inputs(scan_path))
+    stats = ScanStats(scan_path).set(volume_shape=list(image.shape))
+    labels = segment_views(nets, image, zooms_of(t1.affine), device=device)
+    affine = t1.affine
+    cc_device = (device if device is not None
+                 else next(nets.parameters()).device)
+    subject = _subject(scan_path)
+
+    def write_outputs():
+        with span("infer.write", subject):
+            if options.bool("post_process"):
+                filtered = post_process_segmentation(
+                    image_dir, labels, atlas_mask=np.ones(labels.shape, bool),
+                    cc_backend=options["cc_backend"], device=cc_device)
+                save_nii(NiftiImage(filtered, affine),
+                         os.path.join(image_dir,
+                                      "out_subcortical_seg_prec.nii.gz"))
+            else:
+                save_nii(NiftiImage(labels, affine),
+                         os.path.join(image_dir,
+                                      "out_subcortical_rawseg.nii.gz"))
+            if options["net_verbose"]:
+                stats.emit()
+
+    if _writer is None:
+        write_outputs()
+        return (time.time() - s_time) / 60.0
+    stats.stop()
+    elapsed = time.time() - s_time
+    _writer.submit(write_outputs)
+    return elapsed / 60.0
 
 
 def _test_scan(net, scan_path, options, register_fn, device, devices,
@@ -734,7 +815,9 @@ class SegmentationEngine:
 
     ``params`` is a state dict (:func:`~subcort_tpu_torch.models.init_params`,
     :func:`~subcort_tpu_torch.models.load_theano_checkpoint` or
-    :func:`~subcort_tpu_torch.models.params_from_jax`); the device comes
+    :func:`~subcort_tpu_torch.models.params_from_jax`), or FastSurfer
+    state dicts, one a view (``{"axial": ..., "coronal": ...,
+    "sagittal": ...}``), for the multi-view path; the device comes
     from ``options.mode`` (:func:`~subcort_tpu_torch.config.select_device`),
     and the net is held in ``options.compute_dtype``. ``[tpu]
     data_parallel > 1`` segments every scan over ``devices``
@@ -743,13 +826,18 @@ class SegmentationEngine:
 
     def __init__(self, params: Params, options: Options,
                  spec: TriPlanarSpec = DEFAULT_SPEC, register_fn=None):
-        check_slice_options(options)
         self.options = options
         self.device = select_device(options)
-        self.devices = _data_parallel_devices(options)
-        self.net = net_in_dtype(
-            TriPlanarNet.from_params(params, spec, self.device),
-            options["compute_dtype"])
+        if is_view_params(params):
+            check_views_options(options)
+            self.devices = None
+            self.net = FastSurferViews.from_params(params, self.device)
+        else:
+            check_slice_options(options)
+            self.devices = _data_parallel_devices(options)
+            self.net = net_in_dtype(
+                TriPlanarNet.from_params(params, spec, self.device),
+                options["compute_dtype"])
         self.register_fn = register_fn
         self._load_stream = None
 
@@ -763,6 +851,9 @@ class SegmentationEngine:
         nolearn): softmax probabilities of a pre-extracted patch batch (the
         reference's ``in1..in4`` keys or axial/coronal/sagittal/atlas), in
         memory-bounded chunks."""
+        if isinstance(self.net, FastSurferViews):
+            raise ValueError("predict_proba takes tri-planar patch batches; "
+                             "the FastSurfer views segment whole scans")
         return predict_proba_chunked(self.net, batch).float().cpu().numpy()
 
     def predict(self, batch) -> np.ndarray:
@@ -777,6 +868,8 @@ class SegmentationEngine:
         returned, and no tensor crosses threads. (One stream for every
         load: the caching allocator reuses a stream's freed blocks only on
         that stream.)"""
+        if isinstance(self.net, FastSurferViews):
+            return _load_views_inputs(path, _subject(path))
         args = (path, self.options, self.register_fn, self.device,
                 _subject(path))
         if self.device.type != "cuda":

@@ -1,6 +1,11 @@
 """The tri-planar CNN, its dense (à-trous) evaluator and its checkpoint
-importers."""
+importers; FastSurferCNN's view networks."""
 
+from subcort_tpu_torch.models.fastsurfer import (  # noqa: F401
+    FastSurferCNN,
+    FastSurferSpec,
+    FastSurferViews,
+)
 from subcort_tpu_torch.models.fcn import (  # noqa: F401
     dense_branch_features,
     fcn_forward_bbox,

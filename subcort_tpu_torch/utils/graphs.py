@@ -17,8 +17,13 @@ and the caller after it again at its end: no device-wide synchronize, so
 another thread may keep the card busy meanwhile (the pipelined folder
 sweep registers on its loader thread while the main thread segments). A
 failed capture or replay raises; nothing falls back to eager calls.
-:meth:`GraphedStep.close` waits for the replays and hands the graph's
-memory pool back to the caching allocator.
+:meth:`GraphedStep.close` waits for the replays, releases the graph and
+empties its memory pool. Each capture allocates from a pool of its own (a
+``torch.cuda.MemPool``), which goes with the graph: the caching allocator
+cannot hand a released graph's private blocks to the next capture, so
+without that every level of every registration kept its pool reserved
+(about 14 GB a ``register_masks`` call on the MNI-sized scan), and the
+fifth call in a process ran out of the card's memory.
 
 A step may hold NCCL collectives (a data-parallel rank's train step): the
 capture records them on the NCCL stream it forks from the capture stream,
@@ -127,6 +132,7 @@ class GraphedStep:
         self.generators = tuple(generators)
         self.side = capture_stream(device)
         self.graph = None
+        self.pool = None
         self.warmup_calls = 0
         self.replays = 0
         self.capture_ms = None
@@ -160,7 +166,10 @@ class GraphedStep:
                 graph.register_generator_state(generator)
             t0 = time.time_ns()
             _THREAD.launches = []
-            graph.capture_begin(capture_error_mode="thread_local")
+            with torch.cuda.device(self.device):
+                self.pool = torch.cuda.MemPool()
+            graph.capture_begin(pool=self.pool.id,
+                                capture_error_mode="thread_local")
             try:
                 self.step()
             finally:
@@ -176,11 +185,13 @@ class GraphedStep:
         self.replays += 1
 
     def close(self) -> None:
-        """Wait for the replays, then release the graph and its pool."""
+        """Wait for the replays, then release the graph and empty its pool
+        (the pool's destructor returns its blocks to the device)."""
         if self.graph is not None:
             self.side.synchronize()
             self.graph.reset()
             self.graph = None
+        self.pool = None
 
     def __enter__(self) -> "GraphedStep":
         return self

@@ -13,7 +13,10 @@ whose rank functions come from tests/test_torch_distributed.py; a world-1
 NCCL rank's graphed fit against its eager fit, and a rank whose capture
 fails, from tests/test_torch_rank_multistep.py), and the
 headline benchmark's ``run`` on the card against the CPU (its phantom from
-tests/test_torch_bench_scan.py); each skips without a CUDA device.
+tests/test_torch_bench_scan.py), and FastSurferCNN's multi-view path on the
+card against the CPU at a small spec and one full-width batch of 16 slices
+against the plain reference (``benchmark/reference/fastsurfer.py``); each
+skips without a CUDA device.
 
 This file imports no jax and uses no conftest fixture, so it runs on a
 machine that has torch and no jax:
@@ -1258,6 +1261,107 @@ def test_nccl_rank_whose_capture_fails_fails_the_launch(cuda_device,
     assert time.monotonic() - t0 < 75
     assert int((tmp_path / "calls").read_text()) == WARMUP + 1
     assert not (tmp_path / "rank0.pkl").exists()
+
+
+@pytest.mark.cuda
+def test_graph_pools_do_not_pile_up(cuda_device):
+    """Ten GraphedSteps in turn, each capturing a step whose temporaries
+    take 512 MB: every closed graph's pool goes back to the device, so the
+    caching allocator's reserved bytes stay where the first left them
+    (before each capture took a pool of its own, they grew by 512 MB a
+    graph; registration's levels grew them by about 14 GB a call)."""
+    from subcort_tpu_torch.utils.graphs import GraphedStep
+
+    x = torch.zeros(1 << 20, device=cuda_device)
+
+    def step():
+        big = torch.ones(1 << 27, device=cuda_device)  # 512 MB
+        x.add_(big[: x.numel()])
+
+    reserved = []
+    for _ in range(10):
+        with GraphedStep(step, cuda_device) as graphed:
+            graphed.run(5)
+        torch.cuda.synchronize(cuda_device)
+        reserved.append(torch.cuda.memory_reserved(cuda_device))
+    assert float(x[0]) == 50.0
+    assert max(reserved) - reserved[0] <= 64 << 20, reserved
+
+
+def _views_setup(device, filters, shape, size):
+    """FastSurferCNN's views at ``filters`` with the benchmark's seeded
+    weights calibrated on a scan of ``shape`` (``frozen.make_scan``)."""
+    import json
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from benchmark import frozen, weights_fastsurfer
+    cfg = dict(json.loads((root / "benchmark/configs/fastsurfer_cnn.json")
+                          .read_text()), num_filters=filters)
+    image = frozen.make_scan(np.random.default_rng(41), shape)[0]
+    params = weights_fastsurfer.make_weights(cfg, 41, device)
+    weights_fastsurfer.calibrate(params, cfg, image, device, 41, n=8,
+                                 size=size)
+    return params, image
+
+
+@pytest.mark.cuda
+def test_views_card_matches_cpu(cuda_device):
+    """The multi-view path at the CPU tests' small spec (8 filters, a 32^3
+    conformed volume): the card's P within 1e-5 of the CPU's on all but a
+    thousandth of the voxels (max-unpool's near-ties), labels equal on
+    >= 0.995 of them."""
+    from subcort_tpu_torch.engine import views
+    from subcort_tpu_torch.models.fastsurfer import FastSurferViews
+
+    params, image = _views_setup(cuda_device, 8, (24, 28, 22), 32)
+    cpu_params = {v: {k: t.cpu() for k, t in p.items()}
+                  for v, p in params.items()}
+    card = FastSurferViews.from_params(params, cuda_device)
+    cpu = FastSurferViews.from_params(cpu_params, "cpu")
+    from subcort_tpu_torch.config import exact_float32
+
+    vol, _ = views.conform(torch.from_numpy(image), 32)
+    vol = vol.float() / 255.0
+    with torch.no_grad(), exact_float32():
+        p_card = views.view_probabilities(card, vol.to(cuda_device), 16)
+        p_cpu = views.view_probabilities(cpu, vol, 16)
+    off = (p_card.cpu() - p_cpu).abs().max(-1).values
+    assert float((off > 1e-5).float().mean()) <= 1e-3
+    got = views.segment_views(card, image, (1, 1, 1), size=32)
+    want = views.segment_views(cpu, image, (1, 1, 1), size=32)
+    assert got.shape == image.shape
+    assert float((got == want).mean()) >= 0.995
+
+
+@pytest.mark.cuda
+def test_views_full_width_batch_matches_reference(cuda_device):
+    """One batch of 16 axial thick slices at the published widths (7 x 256 x
+    256, 64 filters, 5 x 5, 79 classes) on the card against the plain
+    reference: the slices bit-equal, the logits' argmax equal on >= 0.999
+    of the pixels, their median difference under 1e-5 of the range."""
+    from benchmark.reference import fastsurfer as ref
+    from subcort_tpu_torch.config import exact_float32
+    from subcort_tpu_torch.engine import views
+    from subcort_tpu_torch.models.fastsurfer import FastSurferCNN
+
+    params, image = _views_setup(cuda_device, 64, (181, 217, 181), 256)
+    net = FastSurferCNN.from_params(params["axial"], device=cuda_device)
+    vol = torch.from_numpy(ref.conform(image)[0]).to(cuda_device)
+    vol = vol.float() / 255.0
+    with torch.no_grad(), exact_float32():
+        mine = views._thick_slices(views.view_volume(vol, 2), 120, 136)
+        want = ref.thick_slices(vol, 2, 120, 136)
+        assert torch.equal(mine, want)
+        got, logits = net(mine), ref.forward(params["axial"], want)
+    assert got.shape == (16, 79, 256, 256)
+    agree = float((got.argmax(1) == logits.argmax(1)).float().mean())
+    assert agree >= 0.999
+    assert float((got - logits).abs().median()
+                 / logits.abs().max()) < 1e-5
 
 
 @pytest.mark.cuda

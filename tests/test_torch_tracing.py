@@ -44,6 +44,10 @@ NARROW = dict(conv_filters=(8, 8, 8, 8, 8), fc_conv=16, fc_fc=16, fc2=16)
 SPEC = TriPlanarSpec(**NARROW, dropout_conv=0.0, dropout_fc=0.0)
 SLAB = ("infer.slab_inputs", "infer.upload", "infer.forward",
         "infer.readback", "infer.scatter")
+# the profiler's stamps against time.time_ns(): on the CPU the annotation
+# led the record's start by 3-41 us and trailed its end by 4-400 us over
+# 1,120 records, idle and under 7 busy processes, never the other way
+CLOCK_SLACK_NS = 100_000
 STAGES = {"fcn": {"infer.prepare", *SLAB},
           "patch": {"infer.prepare", *SLAB[1:]}}
 
@@ -291,7 +295,14 @@ def _ns(event, what):
 
 def test_spans_share_the_profiler_clock(net, phantom):
     """A profiler on records the spans with no recording(), each one also
-    a user annotation of its name within 1 ms of the record."""
+    a user annotation of its name, on one clock: the annotation opens
+    before the record's start stamp and closes after its end stamp (a
+    span enters its annotation first and leaves it last), within
+    ``CLOCK_SLACK_NS``, and the median distance between the two is under
+    1 ms. A clock offset beyond the slack breaks the containment on one
+    side for every record; a worker thread preempted between the two
+    stamps (six test workers on a shared CPU: a single gap of over 1 ms)
+    moves neither."""
     from torch.profiler import ProfilerActivity, profile
 
     # a process's first annotation pays a one-time set-up (about 1 ms on
@@ -311,10 +322,13 @@ def test_spans_share_the_profiler_clock(net, phantom):
             start = _ns(e, "start")
             marks.setdefault(e.name(), []).append(
                 (start, start + _ns(e, "duration")))
+    gaps = []
     for r in recs:
         a, b = min(marks[r.name], key=lambda ab: abs(ab[0] - r.start_ns))
-        assert abs(a - r.start_ns) < 1_000_000, r.name
-        assert abs(b - r.end_ns) < 1_000_000, r.name
+        assert a - CLOCK_SLACK_NS <= r.start_ns, r.name
+        assert r.end_ns <= b + CLOCK_SLACK_NS, r.name
+        gaps += [r.start_ns - a, b - r.end_ns]
+    assert np.median(gaps) < 1_000_000
     # the profiler gone, spans are off again
     assert span("infer.prepare") is runtime._OFF
 
@@ -356,3 +370,82 @@ def test_two_threads_keep_their_own_parents():
         assert outer.name == f"{tag}.outer" and outer.parent is None
         assert inner.thread == outer.thread
         assert inner.request == outer.request == tag
+
+
+def _view_nets():
+    from subcort_tpu_torch.models.fastsurfer import (FastSurferSpec,
+                                                     FastSurferViews)
+    from subcort_tpu_torch.models.fastsurfer import init_params as fs_init
+    spec = FastSurferSpec(num_filters=4)
+    g = torch.Generator().manual_seed(3)
+    return FastSurferViews.from_params(
+        {"axial": fs_init(spec, g), "coronal": fs_init(spec, g),
+         "sagittal": fs_init(spec.sagittal(), g)}, "cpu")
+
+
+def _view_scan():
+    rng = np.random.default_rng(5)
+    return (rng.random((20, 18, 16)) * 800 + 100).astype(np.int16)
+
+
+VIEW_STAGES = {"views.upload", "views.conform", "views.forward",
+               "views.aggregate", "views.readback"}
+
+
+def test_views_spans_nest_under_one_request():
+    """``segment_views`` gives one ``views.segment`` root with its stages as
+    children (a ``views.forward`` a view, in the order axial, coronal,
+    sagittal), their attributes, and ``SLICES`` counts the slices."""
+    from subcort_tpu_torch.engine import views
+
+    nets, image = _view_nets(), _view_scan()
+    before = views.SLICES
+    with recording():
+        labels = views.segment_views(nets, image, (1, 1, 1), batch=6,
+                                     size=32)
+    recs = records()
+    root = _check_tree(recs, "views.segment")
+    assert {r.name for r in recs} == {"views.segment", *VIEW_STAGES}
+    assert all(r.parent == root.id for r in recs if r is not root)
+    by = {}
+    for r in sorted(recs, key=lambda r: r.start_ns):
+        by.setdefault(r.name, []).append(r)
+    assert [r.attrs["view"] for r in by["views.forward"]] == [0, 1, 2]
+    assert all(r.attrs["slices"] == 32 and r.attrs["batches"] == 6
+               for r in by["views.forward"])
+    assert by["views.upload"][0].attrs["bytes"] == image.nbytes
+    assert by["views.conform"][0].attrs["bytes"] == 32 ** 3
+    assert by["views.readback"][0].attrs["bytes"] == labels.nbytes
+    assert [r.name for r in sorted(recs, key=lambda r: r.start_ns)][1:] == [
+        "views.upload", "views.conform", "views.forward", "views.forward",
+        "views.forward", "views.aggregate", "views.readback"]
+    assert views.SLICES - before == 3 * 32
+    # off, nothing records and the counter still counts
+    runtime.clear_records()
+    views.segment_views(nets, image, (1, 1, 1), batch=6, size=32)
+    assert records() == [] and views.SLICES - before == 6 * 32
+
+
+def test_views_test_scan_under_its_subject(tmp_path, monkeypatch):
+    """``test_scan`` by the view networks: ``infer.scan`` of the subject
+    with ``infer.load``, ``views.segment`` and ``infer.write`` (the
+    post-process's ``postprocess.filter`` under it) as children."""
+    from subcort_tpu_torch.engine import views
+
+    monkeypatch.setattr(views, "SIZE", 32)
+    sub = tmp_path / "subj7"
+    sub.mkdir()
+    save_nii(NiftiImage(_view_scan()), str(sub / "T1.nii.gz"))
+    options = Options(mode="cpu", net_verbose=0)
+    with recording():
+        test_scan(_view_nets(), str(sub / "T1.nii.gz"), options)
+    recs = records()
+    root = _check_tree(recs, "infer.scan")
+    assert root.request == "subj7"
+    ids = _by_id(recs)
+    kids = [r.name for r in sorted(recs, key=lambda r: r.start_ns)
+            if r.parent == root.id]
+    assert kids == ["infer.load", "views.segment", "infer.write"]
+    (filt,) = [r for r in recs if r.name == "postprocess.filter"]
+    assert ids[filt.parent].name == "infer.write"
+    assert (sub / "out_subcortical_seg_prec.nii.gz").exists()
