@@ -158,7 +158,17 @@ and the exit code is non-zero:
        (FILTER_BYTES_PER_VOXEL a voxel over 3.35 TB/s) and its plain
        version's on the card, and the whole post_process_segmentation
        call, scipy against the card (host clock, median of 5), all
-       array-equal;
+       array-equal; then the dense scan's input kernels' table at
+       scan_dense's shapes (scan_inputs_table): scan_moments and
+       prior_rows against their plain versions and the host's rows
+       (equal), each one's device ms (CUDA events, 50 calls) beside its
+       host enqueue ms, its device us (torch.profiler), its bound and its
+       plain version's ms on the card; the prior block's and the scan's
+       copy through pinned staging and pageable; the host helpers the
+       kernels replace; and segment_volume at full width with the inputs
+       derived on the card and on the host (CARD_INPUTS one a call, two
+       launches a call, equal labels; median seconds and self ms by
+       stage);
    (d) one float32 train step at patch 40 (dropout 0) on the phase-11
        stack, every subject's 8 corner centers in the batch of 128: finite,
        no gather launch, loss and BN EMA card vs CPU within 1e-5;
@@ -1459,6 +1469,207 @@ def filter_table(torch, device, smi, seed: int = 0) -> dict:
             "filter_call_card_s": call_s["device"]}
 
 
+def _median_s(torch, fn, reps: int = 20) -> tuple:
+    """Median seconds of ``fn`` by the host's clock: until it returns, and
+    until the card has done what it queued (a synchronize after it)."""
+    ret, done = [], []
+    for _ in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        ret.append(t1 - t0)
+        done.append(time.perf_counter() - t0)
+    return float(np.median(ret[2:])), float(np.median(done[2:]))
+
+
+def scan_inputs_table(torch, device, smi, seed: int = 0) -> dict:
+    """Phase 14(c)'s table of the dense scan's input kernels at scan_dense's
+    shapes (make_scan's int16 T1, its ROI dilated 10 times: 204,403
+    candidates, bbox 80x96x80): each kernel's device time by CUDA events
+    over 50 calls beside its host enqueue time, its bound and its plain
+    version on the card; the prior block's and the scan's copy through
+    pinned staging beside a pageable copy (for the block after a host
+    contiguous copy, its strides being no pageable copy's); the host
+    helpers the kernels replace, timed alone; and segment_volume at full
+    width with the inputs derived on the card and on the host (labels and
+    probabilities bit-equal; host clock; self ms a call by stage from the
+    program's spans). Returns its numbers."""
+    from scipy import ndimage
+
+    from subcort_tpu_torch.bench.scan import make_scan
+    from subcort_tpu_torch.engine import infer
+    from subcort_tpu_torch.models import TriPlanarNet, init_params
+    from subcort_tpu_torch.models.triplanar import DEFAULT_SPEC
+    from subcort_tpu_torch.ops import scan_inputs
+    from subcort_tpu_torch.ops.normalize import normalize_stats
+    from subcort_tpu_torch.utils import runtime
+    from subcort_tpu_torch.utils.build import build_library
+
+    build_library("scan_inputs", [scan_inputs.SOURCE], verbose=True)
+    image, atlas, roi = make_scan(np.random.default_rng(seed))
+    centers = np.stack(np.nonzero(ndimage.binary_dilation(
+        roi, iterations=10)), 1).astype(np.int32)
+    n = len(centers)
+    lo, dims = infer._bbox_of(centers, image.shape)
+    view = atlas[lo[0]:lo[0] + dims[0], lo[1]:lo[1] + dims[1],
+                 lo[2]:lo[2] + dims[2]]
+    vol_d = torch.from_numpy(image).to(device)
+    cen_d = torch.from_numpy(centers).to(device)
+    block = torch.from_numpy(np.ascontiguousarray(view)).to(device)
+    check(torch.equal(scan_inputs.scan_moments(vol_d, cen_d),
+                      scan_inputs.scan_moments_plain(vol_d, cen_d)),
+          "scan_moments == its plain version")
+    rows, lin = scan_inputs.prior_rows(block, cen_d, lo, np.uint16)
+    want = scan_inputs.prior_rows_plain(block, cen_d, lo, np.uint16)
+    check(torch.equal(rows, want[0]) and torch.equal(lin, want[1]),
+          "prior_rows == its plain version")
+    host_rows = infer._quantize_priors(
+        infer._atlas_vectors_host(atlas, centers), np.uint16)
+    check(np.array_equal(rows.cpu().numpy(), host_rows),
+          "prior_rows == the host's rows")
+    out = {"scan_inputs_candidates": n}
+    moments = time_ms(torch, lambda: scan_inputs.scan_moments(vol_d, cen_d),
+                      host=True)
+    rows_ms = time_ms(torch, lambda: scan_inputs.prior_rows(
+        block, cen_d, lo, np.uint16), host=True)
+    plain_moments = time_ms(torch, lambda: scan_inputs.scan_moments_plain(
+        vol_d, cen_d))
+    plain_rows = time_ms(torch, lambda: scan_inputs.prior_rows_plain(
+        block, cen_d, lo, np.uint16))
+    moments_bytes = image.nbytes + centers.nbytes
+    rows_bytes = n * (4 * 15 + 12 + 2 * 15 + 8)
+    # device us a launch by torch.profiler over 20 calls each
+    names = ("scan_moments", "moments_init", "prior_rows")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            scan_inputs.scan_moments(vol_d, cen_d)
+            scan_inputs.prior_rows(block, cen_d, lo, np.uint16)
+        torch.cuda.synchronize()
+    kernel_us = dict.fromkeys(names, 0.0)
+    for event in prof.key_averages():
+        for name in names:
+            if any(f"{sep}{name}{end}" in event.key
+                   for sep in ("::", " ") for end in ("<", "(")):
+                kernel_us[name] += getattr(event, "device_time_total",
+                                           getattr(event, "cuda_time_total",
+                                                   0.0)) / 20
+    print(f"{smi}: the dense scan's input kernels at scan_dense's shapes, "
+          f"{image.shape} int16, {n} candidates, bbox {dims}")
+    print("| kernel | device ms a call (events, 50) | host enqueue ms | "
+          "device us (profiler, 20) | bound ms | plain on the card ms "
+          "(events, 50) |")
+    print("|---|---|---|---|---|---|")
+    print(f"| scan_moments (+ moments_init) | {moments[0]:.4f} | "
+          f"{moments[1]:.4f} | {kernel_us['scan_moments']:.2f} + "
+          f"{kernel_us['moments_init']:.2f} | "
+          f"{moments_bytes / HBM_BYTES_PER_S * 1e3:.4f} "
+          f"({moments_bytes} B) | {plain_moments:.3f} |")
+    print(f"| prior_rows (uint16) | {rows_ms[0]:.4f} | {rows_ms[1]:.4f} | "
+          f"{kernel_us['prior_rows']:.2f} | "
+          f"{rows_bytes / HBM_BYTES_PER_S * 1e3:.4f} ({rows_bytes} B) | "
+          f"{plain_rows:.3f} |")
+    out.update(scan_moments_ms=moments[0], scan_moments_host_ms=moments[1],
+               scan_moments_bound_ms=moments_bytes / HBM_BYTES_PER_S * 1e3,
+               scan_moments_plain_ms=plain_moments,
+               prior_rows_ms=rows_ms[0], prior_rows_host_ms=rows_ms[1],
+               prior_rows_bound_ms=rows_bytes / HBM_BYTES_PER_S * 1e3,
+               prior_rows_plain_ms=plain_rows, scan_inputs_kernel_us=kernel_us)
+
+    copies = {
+        "block, pinned staging": lambda: infer._upload(view, device),
+        "block, host contiguous copy + pageable": lambda: torch.from_numpy(
+            np.ascontiguousarray(view)).to(device),
+        "scan, pinned staging": lambda: infer._upload(image, device),
+        "scan, pageable": lambda: torch.from_numpy(image).to(device),
+    }
+    check(torch.equal(infer._upload(view, device), block),
+          "the pinned block copy == the block")
+    print("| copy | bytes | host ms until it returns | ms until the card "
+          "has it | GB/s (the latter) |\n|---|---|---|---|---|")
+    out["scan_inputs_copies"] = {}
+    for name, fn in copies.items():
+        nbytes = view.nbytes if name.startswith("block") else image.nbytes
+        ret, done = _median_s(torch, fn)
+        out["scan_inputs_copies"][name] = (ret, done)
+        print(f"| {name} | {nbytes} | {ret * 1e3:.3f} | {done * 1e3:.3f} | "
+              f"{nbytes / done * 1e-9:.2f} |")
+
+    host = {
+        "normalize_stats": lambda: normalize_stats(image),
+        "_bbox_of": lambda: infer._bbox_of(centers, image.shape),
+        "range check": lambda: centers.min() < 0 or (
+            centers >= np.asarray(image.shape)).any(),
+        "_fcn_slab_inputs (the whole slab's inputs)": lambda:
+            infer._fcn_slab_inputs(
+            image, (1.0, 1.0), atlas, lo, dims, image.shape, np.uint16,
+            centers),
+        "_atlas_vectors_host": lambda: infer._atlas_vectors_host(
+            atlas, centers),
+        "_quantize_priors": lambda: infer._quantize_priors(host_rows.astype(
+            np.float32) / 65535, np.uint16),
+    }
+    print("| host helper (the card's host, median of 20) | ms |\n|---|---|")
+    out["scan_inputs_host_ms"] = {}
+    for name, fn in host.items():
+        ms = _median_s(torch, fn)[0] * 1e3
+        out["scan_inputs_host_ms"][name] = ms
+        print(f"| {name} | {ms:.3f} |")
+
+    net = TriPlanarNet.from_params(
+        init_params(DEFAULT_SPEC, torch.Generator().manual_seed(seed)),
+        DEFAULT_SPEC, device)
+    real = infer._card_inputs
+    results, walls, stages = {}, {}, {}
+    names = ("infer.prepare", "infer.upload", "infer.slab_inputs",
+             "infer.forward", "infer.readback", "infer.scatter")
+    for path in ("card", "host", "card", "host"):
+        infer._card_inputs = real if path == "card" else (lambda *a: False)
+        try:
+            calls, launches = infer.CARD_INPUTS, scan_inputs.LAUNCHES
+            times = []
+            for _ in range(12):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                results[path] = infer.segment_volume(net, image, atlas,
+                                                     centers)
+                times.append(time.perf_counter() - t0)
+            runtime.clear_records()
+            with runtime.recording():
+                for _ in range(10):
+                    infer.segment_volume(net, image, atlas, centers)
+            recs = runtime.records()
+            runtime.clear_records()
+        finally:
+            infer._card_inputs = real
+        engaged = infer.CARD_INPUTS - calls
+        check(engaged == (22 if path == "card" else 0),
+              f"CARD_INPUTS rose by one a call on the card path ({engaged})")
+        check(scan_inputs.LAUNCHES - launches == (44 if path == "card"
+                                                  else 0),
+              "two input launches a call on the card path")
+        walls.setdefault(path, []).extend(times[2:])
+        self_s = runtime.self_seconds(recs)
+        stages.setdefault(path, []).append(
+            {k: self_s.get(k, 0.0) * 100 for k in names})  # ms a call
+    check(np.array_equal(results["card"][0], results["host"][0]),
+          "segment_volume: card inputs == host inputs")
+    print("| segment_volume at full width | median s (host clock, 20) | "
+          + " | ".join(f"{k} ms" for k in names) + " |")
+    print("|---|---|" + "---|" * len(names))
+    for path in ("card", "host"):
+        med = float(np.median(walls[path]))
+        per = {k: float(np.median([d[k] for d in stages[path]]))
+               for k in names}
+        out[f"scan_inputs_segment_{path}_s"] = med
+        out[f"scan_inputs_stages_{path}_ms"] = per
+        print(f"| inputs on the {path} | {med:.5f} | "
+              + " | ".join(f"{per[k]:.3f}" for k in names) + " |")
+    return out
+
+
 def cli_phase(torch, device, smi, image, atlas, roi, labels, params,
               stack, atlas_dir: Path) -> dict:
     """Phase 14: the command line on the card (see the module docstring)."""
@@ -1707,6 +1918,7 @@ def cli_phase(torch, device, smi, image, atlas, roi, labels, params,
         out.update(cli_cc_device_s=times["device"],
                    cli_cc_scipy_s=times["scipy"])
         out.update(filter_table(torch, device, smi))
+        out.update(scan_inputs_table(torch, device, smi))
 
         # (d) a train step at patch 40 on the phase-11 stack, border
         # centers among the batch: the plain gather on the card

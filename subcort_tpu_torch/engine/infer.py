@@ -6,9 +6,14 @@ two engines over the candidate voxels, with prior vectors gathered on the
 host and results scattered on the host:
 
 - the dense path (``engine="fcn"``): the candidate bbox plus its patch
-  context is cut from the raw scan on the host, normalized on the device,
-  and run through the à-trous tri-planar convs, then the head MLP at the
-  candidate voxels (:func:`subcort_tpu_torch.models.fcn.fcn_forward_slab`);
+  context is cut from the raw scan, normalized on the device, and run
+  through the à-trous tri-planar convs, then the head MLP at the candidate
+  voxels (:func:`subcort_tpu_torch.models.fcn.fcn_forward_slab`). On one
+  device a narrow-integer scan (the usual int16 T1) goes up as it is, with
+  the centers and each sub-bbox's prior block, and the device derives the
+  statistics, the bbox, the slab and the prior rows
+  (:mod:`subcort_tpu_torch.ops.scan_inputs`; ``CARD_INPUTS`` counts such
+  calls); elsewhere the host does;
 - the patch path (``engine="patch"``): the normalized, padded volume on the
   device, laid out once for the gather kernel on the card, and chunks of
   (the CUDA tri-planar gather kernel -> CNN -> argmax)
@@ -37,9 +42,9 @@ nothing is rerouted silently.
 
 Left out of the JAX dense host path, which shaped it for a TPU behind a
 slow link: the packed-bitmask candidate wire, compacted prior rows, the
-power-of-two shape ladder and the 6 MB slab-split gate. The port ships
-the raw slab, int64 candidate indices and every candidate's prior row,
-and on one device runs the sub-bboxes serially.
+power-of-two shape ladder and the 6 MB slab-split gate. Where the host
+cuts, the port ships the raw slab, int64 candidate indices and every
+candidate's prior row; on one device it runs the sub-bboxes serially.
 
 Output contract as the reference's (base.py:445-455):
 ``out_subcortical_prob.nii.gz`` (with out_probabilities; values in 1/255
@@ -63,10 +68,11 @@ from __future__ import annotations
 
 import copy
 import os
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -85,8 +91,9 @@ from subcort_tpu_torch.models.fcn import HALF, RF, fcn_forward_slab
 from subcort_tpu_torch.models.triplanar import (DEFAULT_SPEC, Params,
                                                 TriPlanarNet, TriPlanarSpec,
                                                 predict_proba_chunked)
+from subcort_tpu_torch.ops import scan_inputs
 from subcort_tpu_torch.ops.gather_kernel import prepare_gather_volume
-from subcort_tpu_torch.ops.normalize import normalize_stats
+from subcort_tpu_torch.ops.normalize import normalize_stats, stats_from_moments
 from subcort_tpu_torch.ops.patches import pad_volume
 from subcort_tpu_torch.ops.sampling import get_mask_voxels
 from subcort_tpu_torch.parallel import distributed
@@ -96,6 +103,13 @@ from subcort_tpu_torch.registration.driver import check_registration
 from subcort_tpu_torch.utils.runtime import current_request, span
 
 DEFAULT_CHUNK = 8192
+# the device's integer sums give normalize_stats' float64 statistics bit for
+# bit while the sum of squares (which bounds every partial sum) is below this
+EXACT_SQUARES = 2 ** 53
+
+# segment_volume calls whose inputs the device derived
+CARD_INPUTS = 0
+_CARD_INPUTS_LOCK = threading.Lock()
 
 
 def check_slice_options(options: Options) -> None:
@@ -163,8 +177,21 @@ def _atlas_vectors_host(atlas: np.ndarray, centers: np.ndarray) -> np.ndarray:
 def _bbox_of(centers: np.ndarray, shape, align: int = 16):
     """Tight bbox of the candidate set, dims rounded up to ``align`` and
     clamped inside the volume (copy of infer.py:124-133)."""
-    lo = centers.min(axis=0)
-    hi = centers.max(axis=0) + 1
+    return _bbox_from(centers.min(axis=0), centers.max(axis=0) + 1, shape,
+                      align)
+
+
+def _check_centers(lo, hi, shape) -> None:
+    """Raise where the centers' extent ``[lo, hi)`` leaves the volume: the
+    gather kernel does not clamp."""
+    if (np.asarray(lo) < 0).any() or (np.asarray(hi)
+                                       > np.asarray(shape)).any():
+        raise ValueError(f"centers outside the volume of shape {shape}")
+
+
+def _bbox_from(lo, hi, shape, align: int = 16):
+    """:func:`_bbox_of` from the centers' per-axis extent ``[lo, hi)``."""
+    lo, hi = np.asarray(lo), np.asarray(hi)
     dims = hi - lo
     dims = np.minimum(-(-dims // align) * align, np.asarray(shape))
     lo = np.minimum(lo, np.asarray(shape) - dims)
@@ -206,6 +233,26 @@ def _raw_wire(image: np.ndarray) -> bool:
     return image.dtype.kind in "iu" and image.dtype.itemsize <= 2
 
 
+def _slab_window(lo, dims, shape):
+    """The slab of the sub-bbox at ``lo``: per axis the source slice of
+    the volume and the destination slice of the (dims + RF) slab; the
+    rest of the slab lies outside the volume."""
+    src, dst = [], []
+    for l, d, s in zip(lo, dims, shape):
+        a = min(max(int(l) - HALF, 0), s)
+        b = max(min(int(l) + d + HALF - 1, s), a)
+        ds = a - (int(l) - HALF)
+        if ds < 0:
+            # a sub-bbox starting more than HALF past the volume end has no
+            # overlap; a negative dst start would wrap around numpy's
+            # negative indices into a non-empty slice
+            a = b = s
+            ds = 0
+        src.append(slice(a, b))
+        dst.append(slice(ds, ds + (b - a)))
+    return tuple(src), tuple(dst)
+
+
 def _fcn_slab_inputs(image, stats, atlas, lo, dims, shape, prior_dtype,
                      centers=None):
     """Host prep for one sub-bbox (infer.py:210-334). ``image`` is the RAW
@@ -230,26 +277,14 @@ def _fcn_slab_inputs(image, stats, atlas, lo, dims, shape, prior_dtype,
     raw_wire = _raw_wire(image)
     slab = np.zeros((bx + RF, by + RF, bz + RF),
                     image.dtype if raw_wire else np.float32)
-    src, dst = [], []
-    for l, d, s in zip(lo, dims, shape):
-        a = min(max(int(l) - HALF, 0), s)
-        b = max(min(int(l) + d + HALF - 1, s), a)
-        ds = a - (int(l) - HALF)
-        if ds < 0:
-            # a sub-bbox starting more than HALF past the volume end has no
-            # overlap; a negative dst start would wrap around numpy's
-            # negative indices into a non-empty slice
-            a = b = s
-            ds = 0
-        src.append(slice(a, b))
-        dst.append(slice(ds, ds + (b - a)))
+    src, dst = _slab_window(lo, dims, shape)
     if raw_wire:
-        slab[tuple(dst)] = image[tuple(src)]
+        slab[dst] = image[src]
         norm = (np.array([mean, 1.0 / std], np.float32),
                 tuple(s.start for s in dst), tuple(s.stop for s in dst))
     else:
-        slab[tuple(dst)] = ((image[tuple(src)].astype(np.float32)
-                             - np.float32(mean)) * np.float32(1.0 / std))
+        slab[dst] = ((image[src].astype(np.float32) - np.float32(mean))
+                     * np.float32(1.0 / std))
         norm = None
 
     if centers is not None:
@@ -333,14 +368,21 @@ def _fcn_slab(net, image, stats, atlas, lo, dims, prior_dtype, probs_dtype,
             lin = to_device(lin)
         if norm is not None:
             norm = (to_device(norm[0]),) + norm[1:]
+    labels_b, probs_b = _fcn_forward(net, slab, vecs, lin, norm, want_probs,
+                                     probs_dtype, request)
+    return labels_b, probs_b, lo, dims, centers, cs
+
+
+def _fcn_forward(net, slab, vecs, lin, norm, want_probs, probs_dtype,
+                 request=None):
+    """:func:`fcn_forward_slab` on one slab's device inputs, then the
+    read-back: (labels, probs or None) on the host."""
     with span("infer.forward", request):
         labels_b, probs_b = fcn_forward_slab(
             net, slab, vecs, want_probs,
             probs_dtype=getattr(torch, np.dtype(probs_dtype).name),
             gather_idx=lin, norm=norm)
-    labels_b, probs_b = _readback(labels_b, probs_b if want_probs else None,
-                                  request)
-    return labels_b, probs_b, lo, dims, centers, cs
+    return _readback(labels_b, probs_b if want_probs else None, request)
 
 
 def _readback(labels: torch.Tensor, probs: Optional[torch.Tensor],
@@ -397,10 +439,114 @@ def _fcn_run_bboxes(nets, image, stats, atlas, bboxes, centers, label_vol,
         scatter_oldest()
 
 
+class _CardInputs(NamedTuple):
+    """What the device holds of one call's inputs: the raw scan and the
+    (N, 3) int32 centers, and the candidates' whole bbox."""
+    volume: torch.Tensor
+    centers: torch.Tensor
+    lo: np.ndarray
+    dims: Tuple[int, int, int]
+
+
+def _card_inputs(image: np.ndarray, engine: str, devices,
+                 prior_dtype) -> bool:
+    """Whether ``segment_volume`` derives its inputs on ``device`` (a card,
+    or the CPU by the kernels' plain versions): a narrow-integer scan
+    (:func:`_raw_wire`) of fewer than 2**31 voxels on one device, where
+    the dense engine may run and writes its prior rows in a type the
+    kernel writes. The multi-device paths cut on their workers' threads."""
+    return (devices is None and engine != "patch" and _raw_wire(image)
+            and image.size < scan_inputs.MAX_ELEMENTS
+            and np.dtype(prior_dtype) in scan_inputs.ROW_TYPES)
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``a`` on ``device``. The CPU takes the host array's memory as it
+    lies, strides and all. A card gets it through pinned memory, which the
+    host does not wait for: torch's caching host allocator keeps it from
+    call to call and hands it out again only once the copy has read it."""
+    src = torch.from_numpy(a)
+    if device.type == "cpu":
+        return src
+    pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    pinned.copy_(src)
+    return pinned.to(device, non_blocking=True)
+
+
+def _prepare_on_card(image: np.ndarray, centers: np.ndarray,
+                     device: torch.device):
+    """The raw scan and the centers uploaded in one ``infer.upload`` span,
+    then :func:`scan_inputs.scan_moments` and the read-back of its nine
+    integers, the call's one wait before the forward. Returns
+    (:class:`_CardInputs`, stats); raises :func:`_check_centers`' and
+    :func:`normalize_stats`' errors. The statistics come from the integer
+    sums by :func:`stats_from_moments`, bit-equal to the host's, unless
+    the sum of squares reaches ``EXACT_SQUARES``: then from the host."""
+    with span("infer.upload") as rec:
+        rec.set(bytes=image.nbytes + centers.nbytes)
+        volume = _upload(image, device)
+        centers_d = _upload(centers, device)
+    count, total, squares, *extent = scan_inputs.scan_moments(
+        volume, centers_d).tolist()
+    lo, hi = np.asarray(extent[:3]), np.asarray(extent[3:]) + 1
+    _check_centers(lo, hi, image.shape)
+    stats = (stats_from_moments(count, float(total), float(squares))
+             if squares < EXACT_SQUARES else normalize_stats(image))
+    return _CardInputs(volume, centers_d,
+                       *_bbox_from(lo, hi, image.shape)), stats
+
+
+def _fcn_slab_card(net, card: _CardInputs, stats, atlas, lo, dims,
+                   prior_dtype, probs_dtype, centers, want_probs):
+    """:func:`_fcn_slab` on the device's inputs: the sub-bbox's prior block
+    uploaded as it lies in ``atlas`` (``infer.upload``), then, in
+    ``infer.slab_inputs``, the raw slab cut from the uploaded scan and
+    :func:`scan_inputs.prior_rows`. The whole bbox holds every candidate;
+    a smaller sub-bbox selects its candidates on the device and reads them
+    back for the scatter. Returns what :func:`_fcn_slab` returns."""
+    bx, by, bz = dims
+    device = card.volume.device
+    with span("infer.upload") as rec:
+        block = atlas[lo[0]:lo[0] + bx, lo[1]:lo[1] + by, lo[2]:lo[2] + bz]
+        rec.set(bytes=block.nbytes)
+        block = _upload(block, device)
+    with span("infer.slab_inputs") as rec:
+        if np.array_equal(lo, card.lo) and tuple(dims) == card.dims:
+            cs, cs_d = centers, card.centers
+        else:
+            c = card.centers
+            inside = torch.ones(len(c), dtype=torch.bool, device=device)
+            for k in range(3):
+                inside &= (c[:, k] >= int(lo[k])) & (c[:, k]
+                                                     < int(lo[k]) + dims[k])
+            cs_d = c[inside]
+            cs = cs_d.cpu().numpy()
+            if len(cs) == 0:
+                return None  # nothing to classify here
+        # candidates that fill the bbox take the dense head: a row for
+        # every bbox voxel and no gather
+        sparse = len(cs) < bx * by * bz
+        vecs, lin = scan_inputs.prior_rows(block, cs_d if sparse else None,
+                                           lo, prior_dtype)
+        src, dst = _slab_window(lo, dims, card.volume.shape)
+        # voxels outside the volume are left unset: the forward's norm
+        # zeroes everything outside [dst.start, dst.stop)
+        slab = card.volume.new_empty((bx + RF, by + RF, bz + RF))
+        slab[dst] = card.volume[src]
+        rec.set(rows=len(vecs))
+    mean, std = stats
+    scale = torch.tensor([mean, 1.0 / std], dtype=torch.float32).to(device)
+    norm = (scale, tuple(s.start for s in dst), tuple(s.stop for s in dst))
+    labels_b, probs_b = _fcn_forward(net, slab, vecs, lin, norm, want_probs,
+                                     probs_dtype)
+    return labels_b, probs_b, lo, dims, centers, cs if sparse else None
+
+
 def _normalized_padded(image: np.ndarray, device: torch.device,
-                       stats=None) -> torch.Tensor:
+                       stats=None, raw=None) -> torch.Tensor:
     """The halo-padded, nonzero-normalized float32 volume on ``device``
-    (``stats``: ``image``'s :func:`normalize_stats`, computed if None).
+    (``stats``: ``image``'s :func:`normalize_stats`, computed if None;
+    ``raw``: the raw scan on ``device`` already, or None).
 
     Narrow integer scans (the usual int16 T1) upload raw and normalize on
     the device with the same float32 ``(x - mean) * inv_std`` arithmetic as
@@ -411,7 +557,8 @@ def _normalized_padded(image: np.ndarray, device: torch.device,
     if _raw_wire(image):
         scal = torch.tensor([mean, 1.0 / std], dtype=torch.float32,
                             device=device)
-        raw = torch.from_numpy(image).to(device)
+        if raw is None:
+            raw = torch.from_numpy(image).to(device)
         norm = (raw.to(torch.float32) - scal[0]) * scal[1]
     else:
         norm = torch.from_numpy(
@@ -450,15 +597,25 @@ def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
     sub-bboxes of at most ``ceil(bbox voxels / entries)`` dealt round-robin
     (``fcn_spmd=False``). ``None`` or one entry is the single-device path.
 
+    On one device (a card or the CPU) a narrow-integer scan goes to the
+    device as it is, with the centers, and the device derives the scan's
+    statistics, the bbox, each slab and the prior rows
+    (:func:`_card_inputs`, :mod:`~subcort_tpu_torch.ops.scan_inputs`);
+    the results are bit-equal to the host's derivation.
+
     The call is one ``infer.segment_volume`` span, its stages spans under
     it (``infer.prepare``, then per slab or for the patch engine's centers
     ``infer.slab_inputs``, ``infer.upload``, ``infer.forward``,
-    ``infer.readback`` and ``infer.scatter``; PERF.md §3).
+    ``infer.readback`` and ``infer.scatter``; PERF.md §3). Where the
+    device derives the inputs, ``infer.prepare`` has ``on_card`` 1 and the
+    upload of the scan and the centers as a child ``infer.upload``, and
+    each slab's prior block goes up in an ``infer.upload`` before its
+    ``infer.slab_inputs``.
     """
     if engine not in ("auto", "fcn", "patch"):
         raise ValueError(f"unknown engine {engine!r}")
     with span("infer.segment_volume"):
-        with span("infer.prepare"):
+        with span("infer.prepare") as prep:
             if devices is not None and len(devices) == 1:
                 device, devices = devices[0], None
             if devices is not None:
@@ -481,16 +638,20 @@ def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
                 # the reference's batch generator yields zero batches:
                 # all-zero outputs (base.py:379-380,414-417)
                 return label_vol, prob_vol
-            # the gather kernel does not clamp: out-of-volume centers stop
-            # here
-            if centers.min() < 0 or (centers >= np.asarray(shape)).any():
-                raise ValueError(
-                    f"centers outside the volume of shape {shape}")
-
-            lo, dims = _bbox_of(centers, shape)
+            card = None
+            if _card_inputs(image, engine, devices, prior_dtype):
+                card, stats = _prepare_on_card(image, centers,
+                                               torch.device(device))
+                lo, dims = card.lo, card.dims
+                _count_card_inputs()
+            else:
+                lo, hi = centers.min(axis=0), centers.max(axis=0) + 1
+                _check_centers(lo, hi, shape)
+                lo, dims = _bbox_from(lo, hi, shape)
+                stats = normalize_stats(image)
+            prep.set(on_card=int(card is not None))
             if engine == "auto":
                 engine = "fcn" if int(np.prod(dims)) <= 30 * n else "patch"
-            stats = normalize_stats(image)
             if engine == "patch" and devices is None:
                 # the patch engine's prior rows, host prep as the dense
                 # engine's slab cut is
@@ -502,6 +663,14 @@ def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
                 _segment_on_devices(net, devices, engine, lo, dims, chunk,
                                     fcn_max_bbox_voxels, fcn_spmd, *fcn_args)
                 return label_vol, prob_vol
+            if engine == "fcn" and card is not None:
+                for sub_lo, sub_dims in _split_bbox(lo, dims,
+                                                    fcn_max_bbox_voxels):
+                    _fcn_scatter(_fcn_slab_card(
+                        net, card, stats, atlas, sub_lo, sub_dims,
+                        prior_dtype, probs_dtype, centers, want_probs),
+                        label_vol, prob_vol, want_probs)
+                return label_vol, prob_vol
             if engine == "fcn":
                 _fcn_run_bboxes({torch.device(device): net}, image, stats,
                                 atlas,
@@ -510,15 +679,20 @@ def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
                 return label_vol, prob_vol
 
             with span("infer.upload") as rec:
-                rec.set(bytes=(image.nbytes if _raw_wire(image)
-                               else 4 * image.size) + centers.nbytes
-                        + vecs.nbytes)
-                volume = _normalized_padded(image, device, stats)
+                # where the prepare uploaded the raw scan and the centers,
+                # the patch engine takes them from there
+                rec.set(bytes=vecs.nbytes + (0 if card is not None else (
+                    image.nbytes if _raw_wire(image) else 4 * image.size)
+                    + centers.nbytes))
+                volume = _normalized_padded(
+                    image, device, stats,
+                    None if card is None else card.volume)
                 if volume.is_cuda:
                     # the kernel's two layouts, once per scan; the plain
                     # padded volume is freed here
                     volume = prepare_gather_volume(volume)
-                centers_d = torch.from_numpy(centers).to(device)
+                centers_d = (torch.from_numpy(centers).to(device)
+                             if card is None else card.centers)
                 vecs = torch.from_numpy(vecs).to(device)
             with span("infer.forward"):
                 labels, probs = forward_centers(
@@ -528,6 +702,12 @@ def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
         with span("infer.scatter"):
             _scatter_centers(labels, probs, centers, label_vol, prob_vol)
         return label_vol, prob_vol
+
+
+def _count_card_inputs() -> None:
+    global CARD_INPUTS
+    with _CARD_INPUTS_LOCK:
+        CARD_INPUTS += 1
 
 
 def _scatter_centers(labels, probs, centers, label_vol, prob_vol) -> None:

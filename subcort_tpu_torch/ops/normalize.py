@@ -22,13 +22,21 @@ def normalize_stats(vol: np.ndarray):
     """
     vol = np.asarray(vol)
     cnt = np.count_nonzero(vol)
-    if cnt == 0:
-        raise ValueError("volume is identically zero; cannot normalize")
     flat = vol.reshape(-1)
     s1 = float(flat.sum(dtype=np.float64))
     s2 = float(np.einsum("i,i->", flat, flat, dtype=np.float64))
-    mean = s1 / cnt
-    var = s2 / cnt - mean * mean
+    return stats_from_moments(cnt, s1, s2)
+
+
+def stats_from_moments(count: int, total: float, squares: float):
+    """(mean, std) from the nonzero count and the float64 sums of the
+    values and of their squares: :func:`normalize_stats`' arithmetic and
+    errors, which the device's integer moments share
+    (``engine/infer.py``)."""
+    if count == 0:
+        raise ValueError("volume is identically zero; cannot normalize")
+    mean = total / count
+    var = squares / count - mean * mean
     if var <= 0.0:
         raise ValueError("nonzero voxels have zero variance; cannot normalize")
     return mean, float(np.sqrt(var))

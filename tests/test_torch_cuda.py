@@ -2,7 +2,10 @@
 train step (at patch 32 and at patch 40, which takes the plain gather), the
 on-device registration and connected components on the card against the
 CPU, the post-process's component filter kernel against scipy (MNI-sized
-noise, a snake past the plain version's sweep cap, ties), registration levels replayed from a CUDA graph against the plain loop
+noise, a snake past the plain version's sweep cap, ties), the dense scan's
+input kernels (``scan_moments``, ``prior_rows``) against their plain
+versions at MNI size and ``segment_volume`` through them against the
+host's derivation, registration levels replayed from a CUDA graph against the plain loop
 (also captured on a second thread while the main one segments), the train
 multistep and ``Trainer.fit`` replaying one captured step against the
 plain loop (float32, bfloat16, patch 40, a learning-rate schedule, a
@@ -599,6 +602,109 @@ def test_filter_kernel_matches_scipy_on_mni_noise(cuda_device, seed):
     assert torch.equal(kernel, connected.filter_components_plain(
         crop, crop_atlas, 15))
     np.testing.assert_array_equal(kernel.cpu().numpy(), want[box])
+
+
+def _mni_scan_inputs(seed):
+    """make_scan's int16 T1, priors and the candidates of its ROI dilated
+    10 times (scan_dense's shapes: 204,403 candidates, bbox 80x96x80)."""
+    from scipy import ndimage
+
+    from subcort_tpu_torch.bench.scan import make_scan
+
+    image, atlas, roi = make_scan(np.random.default_rng(seed))
+    centers = np.stack(np.nonzero(ndimage.binary_dilation(
+        roi, iterations=10)), 1).astype(np.int32)
+    return image, atlas, centers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("voxels", [np.int16, np.uint16])
+def test_scan_input_kernels_match_plain_at_mni_size(cuda_device, voxels):
+    """``scan_moments`` and ``prior_rows`` on the card against their plain
+    versions on the same card tensors, bit for bit, at MNI size: the
+    moments of an int16 and a uint16 scan (scrambled and duplicated
+    centers), the prior rows of the candidates' bbox in every wire type,
+    sparse (the candidates, scrambled, with repeats) and dense (every
+    block voxel). Each call counts one launch."""
+    from subcort_tpu_torch.engine.infer import _bbox_of
+    from subcort_tpu_torch.ops import scan_inputs
+
+    image, atlas, centers = _mni_scan_inputs(0)
+    rng = np.random.default_rng(1)
+    centers = centers[rng.permutation(len(centers))]
+    centers = np.concatenate([centers, centers[:999]])
+    # a few rows that sum to zero with mixed signs, and one that numpy's
+    # order sums to 1 where a plain left-to-right sum gives 0
+    atlas = atlas.copy()
+    for i, row in enumerate(([0.5, -0.25, -0.25], [1e8, 0, 0, 0, -1e8],
+                             [1, 0, 1e8, -1e8])):
+        c = centers[i]
+        atlas[c[0], c[1], c[2]] = 0
+        atlas[c[0], c[1], c[2], :len(row)] = row
+    volume = torch.from_numpy(image.astype(voxels)).to(cuda_device)
+    cen = torch.from_numpy(centers).to(cuda_device)
+    before = scan_inputs.LAUNCHES
+    got = scan_inputs.scan_moments(volume, cen)
+    want = scan_inputs.scan_moments_plain(volume, cen)
+    assert scan_inputs.LAUNCHES == before + 1
+    assert torch.equal(got, want)
+    lo, dims = _bbox_of(centers, image.shape)
+    block = torch.from_numpy(np.ascontiguousarray(
+        atlas[lo[0]:lo[0] + dims[0], lo[1]:lo[1] + dims[1],
+              lo[2]:lo[2] + dims[2]])).to(cuda_device)
+    for prior_dtype in scan_inputs.ROW_TYPES:
+        for sel in (cen, None):
+            rows, lin = scan_inputs.prior_rows(block, sel, lo, prior_dtype)
+            want_rows, want_lin = scan_inputs.prior_rows_plain(
+                block, sel, lo, prior_dtype)
+            assert rows.dtype == want_rows.dtype
+            assert torch.equal(rows, want_rows), (prior_dtype, sel is None)
+            assert (lin is None) == (sel is None)
+            if lin is not None:
+                assert torch.equal(lin, want_lin)
+    torch.cuda.synchronize()
+    assert scan_inputs.LAUNCHES == before + 1 + 2 * len(
+        scan_inputs.ROW_TYPES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["int16", "uint16", "split", "float32_wire"])
+def test_segment_volume_card_inputs_equal_the_host_path(cuda_device,
+                                                        monkeypatch, case):
+    """An MNI-sized scan through ``segment_volume`` on the card: the
+    inputs derived there (two launches a call with one sub-bbox, one more
+    for each further sub-bbox) give the labels and probabilities of the
+    host's derivation bit for bit; split: sub-bboxes of at most 200,000
+    voxels, each selecting its candidates on the card."""
+    from subcort_tpu_torch.engine import infer
+    from subcort_tpu_torch.ops import scan_inputs
+
+    image, atlas, centers = _mni_scan_inputs(2)
+    if case == "uint16":
+        image = image.astype(np.uint16)
+    spec = TriPlanarSpec(conv_filters=(8, 8, 8, 8, 8), fc_conv=16,
+                         fc_fc=16, fc2=16)
+    net = TriPlanarNet.from_params(
+        init_params(spec, torch.Generator().manual_seed(4)), spec,
+        cuda_device)
+    kw = dict(want_probs=True, engine="fcn")
+    if case == "split":
+        kw["fcn_max_bbox_voxels"] = 200_000
+    if case == "float32_wire":
+        kw.update(prior_dtype=np.float32, probs_dtype=np.float32)
+    slabs = len(list(infer._split_bbox(
+        *infer._bbox_of(centers, image.shape),
+        kw.get("fcn_max_bbox_voxels", 6_000_000))))
+    before, calls = scan_inputs.LAUNCHES, infer.CARD_INPUTS
+    got = segment_volume(net, image, atlas, centers, **kw)
+    assert scan_inputs.LAUNCHES == before + 1 + slabs
+    assert infer.CARD_INPUTS == calls + 1
+    monkeypatch.setattr(infer, "_card_inputs", lambda *a: False)
+    want = segment_volume(net, image, atlas, centers, **kw)
+    assert scan_inputs.LAUNCHES == before + 1 + slabs
+    assert infer.CARD_INPUTS == calls + 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.cuda

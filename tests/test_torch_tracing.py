@@ -157,15 +157,23 @@ def test_off_fit_records_nothing_and_equals_on(tmp_path):
 
 @pytest.mark.parametrize("engine", ["fcn", "patch"])
 def test_segment_volume_span_tree(net, phantom, engine):
-    """One request, the stages of PERF.md §3 under the root, the upload's
-    and readback's bytes, the slab's prior rows."""
+    """One request, the stages of PERF.md §3 under the root (the upload
+    of the raw int16 scan and the centers under ``infer.prepare``, whose
+    ``on_card`` says the device derived the inputs), the upload's and
+    readback's bytes, the slab's prior rows."""
     with recording():
         _segment(net, phantom, engine)
     recs = records()
     root = _check_tree(recs, "infer.segment_volume")
     names = {r.name for r in recs} - {"infer.segment_volume"}
     assert names == STAGES[engine]
-    assert all(r.parent == root.id for r in recs if r is not root)
+    (prepare,) = [r for r in recs if r.name == "infer.prepare"]
+    assert prepare.attrs["on_card"] == (engine == "fcn")
+    for r in recs:
+        if r is not root:
+            assert r.parent == (prepare.id if r.name == "infer.upload"
+                                and r.start_ns < prepare.end_ns
+                                else root.id), r.name
     centers = phantom[3]
     upload = sum(r.attrs["bytes"] for r in recs if r.name == "infer.upload")
     readback = sum(r.attrs["bytes"] for r in recs
