@@ -164,11 +164,11 @@ and the exit code is non-zero:
        (equal), each one's device ms (CUDA events, 50 calls) beside its
        host enqueue ms, its device us (torch.profiler), its bound and its
        plain version's ms on the card; the prior block's and the scan's
-       copy through pinned staging and pageable; the host helpers the
-       kernels replace; and segment_volume at full width with the inputs
-       derived on the card and on the host (CARD_INPUTS one a call, two
-       launches a call, equal labels; median seconds and self ms by
-       stage);
+       copy through pinned staging and pageable; the host helpers that
+       a float scan and the patch engine still take; and segment_volume
+       at full width on the int16 scan (two input launches a call) and on
+       its float32 copy (statistics and bbox on the host, one launch a
+       call), equal labels; median seconds and self ms by stage);
    (d) one float32 train step at patch 40 (dropout 0) on the phase-11
        stack, every subject's 8 corner centers in the batch of 128: finite,
        no gather launch, loss and BN EMA card vs CPU within 1e-5;
@@ -198,7 +198,7 @@ and the exit code is non-zero:
        from rank 0 only;
    (c) one NCCL rank (world 1): its step equals the plain step bit for
        bit, both under cuDNN's deterministic algorithms; in the same rank,
-       Trainer.fit through parallel/distributed.py::train_rank (as a fit
+       Trainer.fit through engine/train.py::train_rank (as a fit
        over several cards runs each rank) on the index capped at 6,912
        for 2 epochs at batch 128, graphed (the rank's captured step
        replayed, the synced BN's and the gradients' all-reduces inside
@@ -1492,10 +1492,11 @@ def scan_inputs_table(torch, device, smi, seed: int = 0) -> dict:
     version on the card; the prior block's and the scan's copy through
     pinned staging beside a pageable copy (for the block after a host
     contiguous copy, its strides being no pageable copy's); the host
-    helpers the kernels replace, timed alone; and segment_volume at full
-    width with the inputs derived on the card and on the host (labels and
-    probabilities bit-equal; host clock; self ms a call by stage from the
-    program's spans). Returns its numbers."""
+    helpers that a float scan and the patch engine still take, timed
+    alone; and segment_volume at full width on the int16 scan and on its
+    float32 copy, whose statistics and bbox come from the host (equal
+    labels; host clock; self ms a call by stage from the program's
+    spans). Returns its numbers."""
     from scipy import ndimage
 
     from subcort_tpu_torch.bench.scan import make_scan
@@ -1525,10 +1526,11 @@ def scan_inputs_table(torch, device, smi, seed: int = 0) -> dict:
     want = scan_inputs.prior_rows_plain(block, cen_d, lo, np.uint16)
     check(torch.equal(rows, want[0]) and torch.equal(lin, want[1]),
           "prior_rows == its plain version")
-    host_rows = infer._quantize_priors(
-        infer._atlas_vectors_host(atlas, centers), np.uint16)
-    check(np.array_equal(rows.cpu().numpy(), host_rows),
-          "prior_rows == the host's rows")
+    cpu_rows, cpu_lin = scan_inputs.prior_rows_plain(
+        torch.from_numpy(view), torch.from_numpy(centers), lo, np.uint16)
+    check(torch.equal(rows.cpu(), cpu_rows) and torch.equal(lin.cpu(),
+                                                            cpu_lin),
+          "prior_rows == its plain version on the CPU")
     out = {"scan_inputs_candidates": n}
     moments = time_ms(torch, lambda: scan_inputs.scan_moments(vol_d, cen_d),
                       host=True)
@@ -1602,14 +1604,8 @@ def scan_inputs_table(torch, device, smi, seed: int = 0) -> dict:
         "_bbox_of": lambda: infer._bbox_of(centers, image.shape),
         "range check": lambda: centers.min() < 0 or (
             centers >= np.asarray(image.shape)).any(),
-        "_fcn_slab_inputs (the whole slab's inputs)": lambda:
-            infer._fcn_slab_inputs(
-            image, (1.0, 1.0), atlas, lo, dims, image.shape, np.uint16,
-            centers),
         "_atlas_vectors_host": lambda: infer._atlas_vectors_host(
             atlas, centers),
-        "_quantize_priors": lambda: infer._quantize_priors(host_rows.astype(
-            np.float32) / 65535, np.uint16),
     }
     print("| host helper (the card's host, median of 20) | ms |\n|---|---|")
     out["scan_inputs_host_ms"] = {}
@@ -1621,51 +1617,46 @@ def scan_inputs_table(torch, device, smi, seed: int = 0) -> dict:
     net = TriPlanarNet.from_params(
         init_params(DEFAULT_SPEC, torch.Generator().manual_seed(seed)),
         DEFAULT_SPEC, device)
-    real = infer._card_inputs
     results, walls, stages = {}, {}, {}
     names = ("infer.prepare", "infer.upload", "infer.slab_inputs",
              "infer.forward", "infer.readback", "infer.scatter")
-    for path in ("card", "host", "card", "host"):
-        infer._card_inputs = real if path == "card" else (lambda *a: False)
-        try:
-            calls, launches = infer.CARD_INPUTS, scan_inputs.LAUNCHES
-            times = []
-            for _ in range(12):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                results[path] = infer.segment_volume(net, image, atlas,
-                                                     centers)
-                times.append(time.perf_counter() - t0)
-            runtime.clear_records()
-            with runtime.recording():
-                for _ in range(10):
-                    infer.segment_volume(net, image, atlas, centers)
-            recs = runtime.records()
-            runtime.clear_records()
-        finally:
-            infer._card_inputs = real
-        engaged = infer.CARD_INPUTS - calls
-        check(engaged == (22 if path == "card" else 0),
-              f"CARD_INPUTS rose by one a call on the card path ({engaged})")
-        check(scan_inputs.LAUNCHES - launches == (44 if path == "card"
-                                                  else 0),
-              "two input launches a call on the card path")
-        walls.setdefault(path, []).extend(times[2:])
+    scans = {"int16": image, "float32": image.astype(np.float32)}
+    for kind in ("int16", "float32", "int16", "float32"):
+        launches = scan_inputs.LAUNCHES
+        times = []
+        for _ in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[kind] = infer.segment_volume(net, scans[kind], atlas,
+                                                 centers)
+            times.append(time.perf_counter() - t0)
+        runtime.clear_records()
+        with runtime.recording():
+            for _ in range(10):
+                infer.segment_volume(net, scans[kind], atlas, centers)
+        recs = runtime.records()
+        runtime.clear_records()
+        # the moments on the card for the int16 scan, on the host for the
+        # float32 one; the prior rows on the card for both
+        per_call = 2 if kind == "int16" else 1
+        check(scan_inputs.LAUNCHES - launches == 22 * per_call,
+              f"{per_call} input launch(es) a call, {kind} scan")
+        walls.setdefault(kind, []).extend(times[2:])
         self_s = runtime.self_seconds(recs)
-        stages.setdefault(path, []).append(
+        stages.setdefault(kind, []).append(
             {k: self_s.get(k, 0.0) * 100 for k in names})  # ms a call
-    check(np.array_equal(results["card"][0], results["host"][0]),
-          "segment_volume: card inputs == host inputs")
+    check(np.array_equal(results["int16"][0], results["float32"][0]),
+          "segment_volume: int16 scan == its float32 copy")
     print("| segment_volume at full width | median s (host clock, 20) | "
           + " | ".join(f"{k} ms" for k in names) + " |")
     print("|---|---|" + "---|" * len(names))
-    for path in ("card", "host"):
-        med = float(np.median(walls[path]))
-        per = {k: float(np.median([d[k] for d in stages[path]]))
+    for kind in ("int16", "float32"):
+        med = float(np.median(walls[kind]))
+        per = {k: float(np.median([d[k] for d in stages[kind]]))
                for k in names}
-        out[f"scan_inputs_segment_{path}_s"] = med
-        out[f"scan_inputs_stages_{path}_ms"] = per
-        print(f"| inputs on the {path} | {med:.5f} | "
+        out[f"scan_inputs_segment_{kind}_s"] = med
+        out[f"scan_inputs_stages_{kind}_ms"] = per
+        print(f"| {kind} scan | {med:.5f} | "
               + " | ".join(f"{per[k]:.3f}" for k in names) + " |")
     return out
 
@@ -2066,18 +2057,18 @@ def _multistep_ms(device, workdir, timed_steps, modes=("graphed", "eager")):
 
 def _dp_nccl_rank(rank, world, device, workdir, timed_steps):
     """Phase 15(c)'s one NCCL rank: Trainer.fit through
-    distributed.train_rank from the handoffs in ``workdir``'s
+    train.train_rank from the handoffs in ``workdir``'s
     ``fit_graphed`` and ``fit_eager`` (under the launcher's deterministic
     cuDNN flags); then :func:`_dp_step_rank`'s step (tag "nccl1"); then,
     with cuDNN's default algorithms, :func:`_multistep_ms` in the rank,
     saved as ``rank_step_ms.json``."""
     import torch
 
-    from subcort_tpu_torch.parallel import distributed
+    from subcort_tpu_torch.engine import train
 
     work = Path(workdir)
     for tag in ("fit_graphed", "fit_eager"):
-        distributed.train_rank(rank, world, device, str(work / tag))
+        train.train_rank(rank, world, device, str(work / tag))
     _dp_step_rank(rank, world, device, workdir, "nccl1", ("float32",),
                   timed_steps)
     torch.backends.cudnn.deterministic = False
@@ -2088,10 +2079,9 @@ def _dp_nccl_rank(rank, world, device, workdir, timed_steps):
 def _dp_failing_capture_rank(rank, world, device, workdir):
     """Phase 15(c)'s NCCL rank whose step reads a value back, which the
     eager warm-up steps run and a capture refuses:
-    distributed.train_rank on ``workdir``'s handoff, each call of the
+    train.train_rank on ``workdir``'s handoff, each call of the
     step adding one to ``workdir``'s ``calls`` file."""
     from subcort_tpu_torch.engine import train
-    from subcort_tpu_torch.parallel import distributed
 
     calls = Path(workdir) / "calls"
     real = train.TrainMultistep.step
@@ -2103,7 +2093,7 @@ def _dp_failing_capture_rank(rank, world, device, workdir):
         float(self.losses.sum())
 
     train.TrainMultistep.step = step
-    distributed.train_rank(rank, world, device, workdir)
+    train.train_rank(rank, world, device, workdir)
 
 
 @contextlib.contextmanager
@@ -2781,8 +2771,8 @@ def main() -> None:
     from subcort_tpu_torch.engine.forward import forward_centers
     from subcort_tpu_torch.engine.infer import (DEFAULT_CHUNK,
                                                 _atlas_vectors_host, _bbox_of,
-                                                _fcn_slab_inputs,
-                                                _normalized_padded,
+                                                _normalized_padded, _prepare,
+                                                _slab_inputs, _wire,
                                                 candidate_centers,
                                                 net_in_dtype)
     from subcort_tpu_torch.models import (TriPlanarNet, TriPlanarSpec, fcn,
@@ -2853,7 +2843,8 @@ def main() -> None:
     image, atlas, roi = make_scan(scan_rng)
     insitu = torch.from_numpy(candidate_centers(
         image, Options(), roi.astype(np.uint8))[:N_TIMED]).to(device)
-    scan = _normalized_padded(image, device)
+    scan = _normalized_padded(torch.from_numpy(_wire(image)).to(device),
+                              normalize_stats(image))
     scan_vol = prepare_gather_volume(scan)
     for g, w in zip(gather_triplanar_cuda(scan_vol, insitu),
                     gather_triplanar(scan, insitu)):
@@ -3048,13 +3039,10 @@ def main() -> None:
           f"{MIN_AGREEMENT}")
 
     # 9. device time on pre-staged inputs (CUDA events)
-    slab, vecs, cs, lin, norm = _fcn_slab_inputs(
-        image, normalize_stats(image), atlas, lo, dims, image.shape,
-        np.uint16, cands)
-    staged = (torch.from_numpy(slab).to(device),
-              torch.from_numpy(vecs).to(device))
-    staged_norm = (torch.from_numpy(norm[0]).to(device),) + norm[1:]
-    staged_idx = torch.from_numpy(lin).to(device)
+    inputs, stats = _prepare(image, _wire(image), cands, device)
+    slab, vecs, staged_idx, staged_norm, cs = _slab_inputs(
+        inputs, stats, atlas, lo, dims, np.uint16, cands)
+    staged = (slab, vecs)
     flops = slab_flops(dims, len(cs))
     for name in ("float32", "bfloat16"):
         timed_net = net_in_dtype(net, name)
@@ -3065,7 +3053,7 @@ def main() -> None:
         print(f"fcn_forward_slab {name}: bbox {dims}, {len(cs)} rows, "
               f"{ms:.3f} ms, {flops / 1e12:.4f} TFLOP, "
               f"{flops / ms / 1e9:.2f} TFLOP/s")
-    volume = prepare_gather_volume(_normalized_padded(image, device))
+    volume = prepare_gather_volume(_normalized_padded(inputs.volume, stats))
     c_d = torch.from_numpy(cands).to(device)
     v_d = torch.from_numpy(_atlas_vectors_host(atlas, cands)).to(device)
     chunks = -(-len(cands) // DEFAULT_CHUNK)
@@ -3096,7 +3084,7 @@ def main() -> None:
           f"{prof['kernels_per_step']:.1f} kernels a chunk, "
           f"{forward_facts['profiled_device_ms']:.3f} ms of device work a "
           f"pass, busy share {prof['device_busy_share']:.4f}")
-    del staged, staged_idx, volume, c_d, v_d
+    del staged, staged_idx, volume, c_d, v_d, inputs
 
     # 10. bfloat16 vs float32 on every candidate, both engines
     for eng in ("fcn", "patch"):

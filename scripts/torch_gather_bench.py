@@ -70,8 +70,9 @@ def _inputs(torch, device):
     """The three uses' (name, padded, centers, plain gather), made as
     chip_smoke.py makes them."""
     from subcort_tpu_torch import Options
-    from subcort_tpu_torch.engine.infer import (_normalized_padded,
+    from subcort_tpu_torch.engine.infer import (_normalized_padded, _wire,
                                                 candidate_centers)
+    from subcort_tpu_torch.ops.normalize import normalize_stats
     from subcort_tpu_torch.ops.patches import (gather_triplanar,
                                                gather_triplanar_subjects,
                                                pad_volume)
@@ -90,7 +91,9 @@ def _inputs(torch, device):
     insitu = torch.from_numpy(candidate_centers(
         image, Options(), roi.astype(np.uint8))[:N]).to(device)
     return [("random", padded, rand, gather_triplanar),
-            ("insitu", _normalized_padded(image, device), insitu,
+            ("insitu", _normalized_padded(
+                torch.from_numpy(_wire(image)).to(device),
+                normalize_stats(image)), insitu,
              gather_triplanar),
             ("subjects", stack, subj, gather_triplanar_subjects)]
 

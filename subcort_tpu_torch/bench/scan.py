@@ -42,14 +42,14 @@ from scipy import ndimage
 
 from subcort_tpu_torch.bench.train import device_name
 from subcort_tpu_torch.config import Options, exact_float32, select_device
-from subcort_tpu_torch.engine.infer import (_atlas_vectors_host, _bbox_of,
-                                            _fcn_slab_inputs, net_in_dtype,
+from subcort_tpu_torch.engine.infer import (_atlas_vectors_host, _prepare,
+                                            _slab_inputs, _wire, net_in_dtype,
                                             segment_volume)
 from subcort_tpu_torch.engine.postprocess import post_process_segmentation
 from subcort_tpu_torch.models import (DEFAULT_SPEC, TriPlanarNet,
                                       init_params, load_theano_checkpoint)
 from subcort_tpu_torch.models.fcn import fcn_forward_slab, slab_flops
-from subcort_tpu_torch.ops.normalize import normalize_nonzero, normalize_stats
+from subcort_tpu_torch.ops.normalize import normalize_nonzero
 from subcort_tpu_torch.ops.patches import gather_triplanar_np
 
 REF_CKPT = "/root/reference/nets/miccai2012_v1/miccai2012_v1.pkl"
@@ -183,22 +183,17 @@ def run(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
     with_probs, with_probs_med = stats("probs")
 
     # device time: the headline configs' fcn_forward_slab on inputs staged
-    # once (raw slab, prior rows, int64 candidate indices, norm), one
-    # warm-up call, then DEVICE_CALLS back to back, TF32 off
-    nstats = normalize_stats(image)
-    lo, dims = _bbox_of(centers, image.shape)
+    # once by segment_volume's own input stage (raw slab, prior rows, int64
+    # candidate indices, norm), one warm-up call, then DEVICE_CALLS back to
+    # back, TF32 off
+    scan, nstats = _prepare(image, _wire(image), centers, device)
+    dims = scan.dims
 
     def time_device(timed_net, prior_dtype):
-        slab, vecs, _, lin, norm = _fcn_slab_inputs(
-            image, nstats, atlas, lo, dims, image.shape, prior_dtype,
-            centers)
-
-        def put(a):
-            return torch.from_numpy(a).to(device)
-
-        args = (timed_net, put(slab), put(vecs))
-        kw = dict(gather_idx=None if lin is None else put(lin),
-                  norm=None if norm is None else (put(norm[0]),) + norm[1:])
+        slab, vecs, lin, norm, _ = _slab_inputs(
+            scan, nstats, atlas, scan.lo, dims, prior_dtype, centers)
+        args = (timed_net, slab, vecs)
+        kw = dict(gather_idx=lin, norm=norm)
         with exact_float32():
             fcn_forward_slab(*args, **kw)
 

@@ -2,21 +2,24 @@
 
 Reference counterpart: ``test_scan`` + ``load_patch_batch``
 (cnn_cort/base.py:335-458). A scan is segmented on the device by one of
-two engines over the candidate voxels, with prior vectors gathered on the
-host and results scattered on the host:
+two engines over the candidate voxels, with results scattered on the
+host. Every call feeds its engine one way: the scan goes up as it is (a
+narrow integer, the usual int16 T1) or as float32, with the centers; the
+device derives a narrow-integer scan's statistics and the candidates'
+bbox (the host those of any other scan), and the engine reads the scan
+where it lies:
 
-- the dense path (``engine="fcn"``): the candidate bbox plus its patch
-  context is cut from the raw scan, normalized on the device, and run
-  through the à-trous tri-planar convs, then the head MLP at the candidate
-  voxels (:func:`subcort_tpu_torch.models.fcn.fcn_forward_slab`). On one
-  device a narrow-integer scan (the usual int16 T1) goes up as it is, with
-  the centers and each sub-bbox's prior block, and the device derives the
-  statistics, the bbox, the slab and the prior rows
-  (:mod:`subcort_tpu_torch.ops.scan_inputs`; ``CARD_INPUTS`` counts such
-  calls); elsewhere the host does;
-- the patch path (``engine="patch"``): the normalized, padded volume on the
-  device, laid out once for the gather kernel on the card, and chunks of
-  (the CUDA tri-planar gather kernel -> CNN -> argmax)
+- the dense path (``engine="fcn"``): each sub-bbox's slab, its patch
+  context included, is cut from the uploaded scan and its candidates'
+  prior rows derived from the uploaded prior block
+  (:mod:`subcort_tpu_torch.ops.scan_inputs`); the slab is normalized on
+  the device and run through the à-trous tri-planar convs, then the head
+  MLP at the candidate voxels
+  (:func:`subcort_tpu_torch.models.fcn.fcn_forward_slab`);
+- the patch path (``engine="patch"``): the scan normalized and padded on
+  the device, laid out once for the gather kernel on the card, and chunks
+  of (the CUDA tri-planar gather kernel -> CNN -> argmax) with the
+  candidates' prior rows from the host
   (:func:`subcort_tpu_torch.engine.forward.forward_centers`).
 
 ``engine="auto"`` (the default; ``use_fcn = True``) picks the dense path
@@ -35,16 +38,16 @@ segments each scan over several devices from this process, one host
 thread per device (``segment_volume(devices=...)``: the patch engine's
 centers in parts of whole chunks, the dense engine's bbox in one sub-slab
 per device with ``fcn_spmd`` or in sub-bboxes dealt round-robin without;
-:mod:`subcort_tpu_torch.parallel`), and under a multi-host launch
+the threads are :class:`~subcort_tpu_torch.parallel.mesh.DeviceWorkers`),
+and under a multi-host launch
 ``segment_folder`` takes this process's share of the subjects. An unknown
 ``reg_backend`` or ``reg_similarity`` raises a :class:`ValueError`;
 nothing is rerouted silently.
 
 Left out of the JAX dense host path, which shaped it for a TPU behind a
 slow link: the packed-bitmask candidate wire, compacted prior rows, the
-power-of-two shape ladder and the 6 MB slab-split gate. Where the host
-cuts, the port ships the raw slab, int64 candidate indices and every
-candidate's prior row; on one device it runs the sub-bboxes serially.
+power-of-two shape ladder and the 6 MB slab-split gate; on one device the
+port runs the sub-bboxes serially.
 
 Output contract as the reference's (base.py:445-455):
 ``out_subcortical_prob.nii.gz`` (with out_probabilities; values in 1/255
@@ -67,11 +70,11 @@ the options this path cannot run (``out_probabilities``,
 from __future__ import annotations
 
 import copy
+import functools
 import os
-import threading
 import time
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -98,7 +101,7 @@ from subcort_tpu_torch.ops.patches import pad_volume
 from subcort_tpu_torch.ops.sampling import get_mask_voxels
 from subcort_tpu_torch.parallel import distributed
 from subcort_tpu_torch.parallel.mesh import (DeviceWorkers, available_devices,
-                                             replicate)
+                                             replicate, shard_rows)
 from subcort_tpu_torch.registration.driver import check_registration
 from subcort_tpu_torch.utils.runtime import current_request, span
 
@@ -106,10 +109,6 @@ DEFAULT_CHUNK = 8192
 # the device's integer sums give normalize_stats' float64 statistics bit for
 # bit while the sum of squares (which bounds every partial sum) is below this
 EXACT_SQUARES = 2 ** 53
-
-# segment_volume calls whose inputs the device derived
-CARD_INPUTS = 0
-_CARD_INPUTS_LOCK = threading.Lock()
 
 
 def check_slice_options(options: Options) -> None:
@@ -216,21 +215,13 @@ def _split_bbox(lo, dims, max_voxels: int):
         yield from _split_bbox(sub_lo, tuple(sub_dims), max_voxels)
 
 
-def _quantize_priors(vecs: np.ndarray, prior_dtype) -> np.ndarray:
-    """Prior rows in the ``prior_dtype`` the device dequantizes
-    (copy of infer.py:154-165): uint8 and uint16 are 1/255 and 1/65535
-    fixed point; other dtypes a plain cast."""
-    if np.dtype(prior_dtype) == np.uint8:
-        return np.round(vecs * 255.0).astype(np.uint8)
-    if np.dtype(prior_dtype) == np.uint16:
-        return np.round(vecs * 65535.0).astype(np.uint16)
-    return vecs.astype(prior_dtype)
-
-
-def _raw_wire(image: np.ndarray) -> bool:
-    """Whether ``image`` goes to the device raw, to be normalized there:
-    narrow integer scans (the usual int16 T1)."""
-    return image.dtype.kind in "iu" and image.dtype.itemsize <= 2
+def _wire(image: np.ndarray) -> np.ndarray:
+    """``image`` as it goes to the device: a narrow-integer scan (the usual
+    int16 T1) as it is, any other as float32, the type every scan is
+    normalized in."""
+    if image.dtype.kind in "iu" and image.dtype.itemsize <= 2:
+        return image
+    return image.astype(np.float32)
 
 
 def _slab_window(lo, dims, shape):
@@ -253,67 +244,6 @@ def _slab_window(lo, dims, shape):
     return tuple(src), tuple(dst)
 
 
-def _fcn_slab_inputs(image, stats, atlas, lo, dims, shape, prior_dtype,
-                     centers=None):
-    """Host prep for one sub-bbox (infer.py:210-334). ``image`` is the RAW
-    volume and ``stats`` its nonzero (mean, std).
-
-    Returns (slab, prior rows in ``prior_dtype``, cs, lin, norm). Sparse
-    mode, when the candidates do not fill the bbox: cs = the candidates
-    inside it, in the caller's order (duplicates kept), and lin their int64
-    linear bbox indices (C order); the prior rows are cs's. Dense mode
-    (``centers=None`` or a full bbox): a prior row for every bbox voxel in
-    C order, cs and lin None. With no candidate inside, slab is None.
-
-    Narrow-integer scans (the usual int16 T1) keep the slab raw and
-    ``norm = (scale (2,) float32, lo (3,), hi (3,))`` has the device
-    normalize it and zero the voxels outside ``[lo, hi)``, bit-exact with
-    the host path. Other scans normalize on the host; ``norm`` is None.
-    """
-    bx, by, bz = dims
-    mean, std = stats
-    # slab axis i covers [lo-HALF, lo+dim+HALF-1]; outside-volume voxels
-    # stay 0.0 in normalized space (pad_volume's convention)
-    raw_wire = _raw_wire(image)
-    slab = np.zeros((bx + RF, by + RF, bz + RF),
-                    image.dtype if raw_wire else np.float32)
-    src, dst = _slab_window(lo, dims, shape)
-    if raw_wire:
-        slab[dst] = image[src]
-        norm = (np.array([mean, 1.0 / std], np.float32),
-                tuple(s.start for s in dst), tuple(s.stop for s in dst))
-    else:
-        slab[dst] = ((image[src].astype(np.float32) - np.float32(mean))
-                     * np.float32(1.0 / std))
-        norm = None
-
-    if centers is not None:
-        inside = np.all((centers >= lo) & (centers < lo + np.asarray(dims)),
-                        axis=1)
-        cs = centers[inside]
-        if len(cs) == 0:
-            return None, None, cs, None, None  # nothing to classify here
-        if len(cs) < bx * by * bz:
-            # explicit indices keep the results aligned with cs, in any
-            # order and with duplicates
-            rel = cs.astype(np.int64) - np.asarray(lo)[None, :]
-            lin = (rel[:, 0] * by + rel[:, 1]) * bz + rel[:, 2]
-            vecs = _quantize_priors(_atlas_vectors_host(atlas, cs),
-                                    prior_dtype)
-            return slab, vecs, cs, lin, norm
-        # the candidates fill the bbox: the dense head needs no gather
-
-    # prior rows for every bbox voxel, C order over (x, y, z): the bbox is
-    # clamped inside the volume, so this is one block slice
-    vecs = atlas[lo[0]:lo[0] + bx, lo[1]:lo[1] + by,
-                 lo[2]:lo[2] + bz].reshape(-1, atlas.shape[-1]).astype(
-                     np.float32, copy=True)
-    empty = vecs.sum(axis=1) == 0
-    vecs[empty] = 0.0
-    vecs[empty, 14] = 1.0
-    return slab, _quantize_priors(vecs, prior_dtype), None, None, norm
-
-
 def _dequantize_probs(probs_b) -> np.ndarray:
     probs_b = np.asarray(probs_b)
     if probs_b.dtype == np.uint8:
@@ -321,68 +251,20 @@ def _dequantize_probs(probs_b) -> np.ndarray:
     return probs_b
 
 
-def _fcn_scatter_results(labels_b, probs_b, lo, dims, centers, cs,
-                         label_vol, prob_vol, want_probs):
-    """One slab's results into the volumes (infer.py:344-364)."""
-    if cs is not None:
-        # sparse mode: results are aligned with cs
-        label_vol[cs[:, 0], cs[:, 1], cs[:, 2]] = labels_b
+def _fcn_scatter_results(labels_b, probs_b, lo, dims, cs, dense, label_vol,
+                         prob_vol, want_probs):
+    """One slab's results into the volumes at its candidates ``cs``
+    (infer.py:344-364): aligned with ``cs``, or, where ``dense``, the
+    (bx, by, bz) block of the bbox at ``lo``."""
+    if dense:
+        rel = cs - np.asarray(lo)[None, :]
+        at = rel[:, 0], rel[:, 1], rel[:, 2]
+        labels_b = labels_b[at]
         if want_probs:
-            prob_vol[cs[:, 0], cs[:, 1], cs[:, 2]] = _dequantize_probs(probs_b)
-        return
-    bx, by, bz = dims
-    inside = np.all((centers >= lo) & (centers < lo + np.asarray(dims)), axis=1)
-    cs = centers[inside]
-    rel = cs - np.asarray(lo)[None, :]
-    label_vol[cs[:, 0], cs[:, 1], cs[:, 2]] = \
-        labels_b[rel[:, 0], rel[:, 1], rel[:, 2]]
+            probs_b = np.asarray(probs_b).reshape(*dims, -1)[at]
+    label_vol[cs[:, 0], cs[:, 1], cs[:, 2]] = labels_b
     if want_probs:
-        probs_b = _dequantize_probs(probs_b).reshape(bx, by, bz, -1)
-        prob_vol[cs[:, 0], cs[:, 1], cs[:, 2]] = \
-            probs_b[rel[:, 0], rel[:, 1], rel[:, 2]]
-
-
-def _fcn_slab(net, image, stats, atlas, lo, dims, prior_dtype, probs_dtype,
-              centers, want_probs, device, request=None):
-    """One sub-bbox through the dense evaluator on ``device``: host prep,
-    upload, :func:`fcn_forward_slab`, readback, each a span of ``request``
-    (None: the request of the span open on this thread). Returns the
-    arguments of :func:`_fcn_scatter_results` after the volumes' (labels,
-    probs, lo, dims, centers, cs), or None when no candidate lies inside."""
-    with span("infer.slab_inputs", request) as rec:
-        slab, vecs, cs, lin, norm = _fcn_slab_inputs(
-            image, stats, atlas, lo, dims, image.shape, prior_dtype, centers)
-        if slab is None:
-            return None
-        rec.set(rows=len(vecs))
-
-    def to_device(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(device)
-
-    with span("infer.upload", request) as rec:
-        rec.set(bytes=sum(a.nbytes for a in (
-            slab, vecs, lin, None if norm is None else norm[0])
-            if a is not None))
-        slab, vecs = to_device(slab), to_device(vecs)
-        if lin is not None:
-            lin = to_device(lin)
-        if norm is not None:
-            norm = (to_device(norm[0]),) + norm[1:]
-    labels_b, probs_b = _fcn_forward(net, slab, vecs, lin, norm, want_probs,
-                                     probs_dtype, request)
-    return labels_b, probs_b, lo, dims, centers, cs
-
-
-def _fcn_forward(net, slab, vecs, lin, norm, want_probs, probs_dtype,
-                 request=None):
-    """:func:`fcn_forward_slab` on one slab's device inputs, then the
-    read-back: (labels, probs or None) on the host."""
-    with span("infer.forward", request):
-        labels_b, probs_b = fcn_forward_slab(
-            net, slab, vecs, want_probs,
-            probs_dtype=getattr(torch, np.dtype(probs_dtype).name),
-            gather_idx=lin, norm=norm)
-    return _readback(labels_b, probs_b if want_probs else None, request)
+        prob_vol[cs[:, 0], cs[:, 1], cs[:, 2]] = _dequantize_probs(probs_b)
 
 
 def _readback(labels: torch.Tensor, probs: Optional[torch.Tensor],
@@ -396,68 +278,15 @@ def _readback(labels: torch.Tensor, probs: Optional[torch.Tensor],
     return labels, probs
 
 
-def _fcn_scatter(res, label_vol, prob_vol, want_probs) -> None:
-    """:func:`_fcn_slab`'s result into the volumes, as one span; nothing
-    for a sub-bbox without candidates (``res`` None)."""
-    if res is not None:
-        with span("infer.scatter"):
-            _fcn_scatter_results(*res, label_vol, prob_vol, want_probs)
-
-
-def _fcn_run_bboxes(nets, image, stats, atlas, bboxes, centers, label_vol,
-                    prob_vol, want_probs, prior_dtype, probs_dtype, workers):
-    """The dense evaluator over the sub-bboxes (infer.py:367-452), with
-    ``nets[device]`` on each device; ``stats`` are ``image``'s
-    :func:`normalize_stats`. ``workers`` is None on one device: the
-    sub-bboxes run one after another in this thread. Otherwise a
-    :class:`~subcort_tpu_torch.parallel.mesh.DeviceWorkers`: they are dealt
-    round-robin over its entries, with at most ``2 x`` its entries' slabs
-    in flight before the host scatters the oldest."""
-    args = (image, stats, atlas)
-    tail = (prior_dtype, probs_dtype, centers, want_probs)
-    if workers is None:
-        (device, net), = nets.items()
-        for lo, dims in bboxes:
-            _fcn_scatter(_fcn_slab(net, *args, lo, dims, *tail, device),
-                         label_vol, prob_vol, want_probs)
-        return
-    ndev = len(workers.devices)
-    pending = deque()
-    request = current_request()
-
-    def scatter_oldest():
-        _fcn_scatter(pending.popleft().result(), label_vol, prob_vol,
-                     want_probs)
-
-    for i, (lo, dims) in enumerate(bboxes):
-        dev = workers.devices[i % ndev]
-        pending.append(workers.submit(i % ndev, _fcn_slab, nets[dev], *args,
-                                      lo, dims, *tail, dev, request))
-        while len(pending) > 2 * ndev:
-            scatter_oldest()
-    while pending:
-        scatter_oldest()
-
-
-class _CardInputs(NamedTuple):
-    """What the device holds of one call's inputs: the raw scan and the
-    (N, 3) int32 centers, and the candidates' whole bbox."""
+class _Scan(NamedTuple):
+    """One call's inputs on one device: the scan as it went up
+    (:func:`_wire`; for the patch engine the volume it gathers from,
+    :func:`_gather_volume`), the (N, 3) int32 centers, and the candidates'
+    whole bbox."""
     volume: torch.Tensor
     centers: torch.Tensor
     lo: np.ndarray
     dims: Tuple[int, int, int]
-
-
-def _card_inputs(image: np.ndarray, engine: str, devices,
-                 prior_dtype) -> bool:
-    """Whether ``segment_volume`` derives its inputs on ``device`` (a card,
-    or the CPU by the kernels' plain versions): a narrow-integer scan
-    (:func:`_raw_wire`) of fewer than 2**31 voxels on one device, where
-    the dense engine may run and writes its prior rows in a type the
-    kernel writes. The multi-device paths cut on their workers' threads."""
-    return (devices is None and engine != "patch" and _raw_wire(image)
-            and image.size < scan_inputs.MAX_ELEMENTS
-            and np.dtype(prior_dtype) in scan_inputs.ROW_TYPES)
 
 
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -473,48 +302,93 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return pinned.to(device, non_blocking=True)
 
 
-def _prepare_on_card(image: np.ndarray, centers: np.ndarray,
-                     device: torch.device):
-    """The raw scan and the centers uploaded in one ``infer.upload`` span,
-    then :func:`scan_inputs.scan_moments` and the read-back of its nine
-    integers, the call's one wait before the forward. Returns
-    (:class:`_CardInputs`, stats); raises :func:`_check_centers`' and
-    :func:`normalize_stats`' errors. The statistics come from the integer
-    sums by :func:`stats_from_moments`, bit-equal to the host's, unless
-    the sum of squares reaches ``EXACT_SQUARES``: then from the host."""
-    with span("infer.upload") as rec:
-        rec.set(bytes=image.nbytes + centers.nbytes)
-        volume = _upload(image, device)
-        centers_d = _upload(centers, device)
-    count, total, squares, *extent = scan_inputs.scan_moments(
-        volume, centers_d).tolist()
-    lo, hi = np.asarray(extent[:3]), np.asarray(extent[3:]) + 1
+def _upload_scan(wire: np.ndarray, centers: np.ndarray, device,
+                 request=None):
+    """The scan as it goes up (:func:`_wire`) and the centers on
+    ``device``, in one ``infer.upload`` span of ``request``."""
+    with span("infer.upload", request,
+              bytes=wire.nbytes + centers.nbytes):
+        return _upload(wire, device), _upload(centers, device)
+
+
+def _prepare(image: np.ndarray, wire: np.ndarray, centers: np.ndarray,
+             device: torch.device):
+    """``image``'s :func:`_wire` copy ``wire`` and the centers uploaded to
+    ``device`` (:func:`_upload_scan`), then the scan's statistics and the
+    candidates' bbox. Returns (:class:`_Scan`, stats); raises
+    :func:`_check_centers`' and then :func:`normalize_stats`' errors.
+
+    The one place where a scan's type matters: a narrow-integer scan of
+    fewer than ``scan_inputs.MAX_ELEMENTS`` voxels takes
+    :func:`scan_inputs.scan_moments` and the read-back of its nine
+    integers, the call's one wait before the forward, and its statistics
+    come from the integer sums by :func:`stats_from_moments`, bit-equal to
+    the host's, unless the sum of squares reaches ``EXACT_SQUARES``. Any
+    other scan takes both from the host."""
+    volume, centers_d = _upload_scan(wire, centers, device)
+    exact = False
+    if (volume.dtype in scan_inputs.VOXEL_TYPES
+            and image.size < scan_inputs.MAX_ELEMENTS):
+        count, total, squares, *extent = scan_inputs.scan_moments(
+            volume, centers_d).tolist()
+        lo, hi = np.asarray(extent[:3]), np.asarray(extent[3:]) + 1
+        exact = squares < EXACT_SQUARES
+    else:
+        lo, hi = centers.min(axis=0), centers.max(axis=0) + 1
     _check_centers(lo, hi, image.shape)
     stats = (stats_from_moments(count, float(total), float(squares))
-             if squares < EXACT_SQUARES else normalize_stats(image))
-    return _CardInputs(volume, centers_d,
-                       *_bbox_from(lo, hi, image.shape)), stats
+             if exact else normalize_stats(image))
+    return _Scan(volume, centers_d, *_bbox_from(lo, hi, image.shape)), stats
 
 
-def _fcn_slab_card(net, card: _CardInputs, stats, atlas, lo, dims,
-                   prior_dtype, probs_dtype, centers, want_probs):
-    """:func:`_fcn_slab` on the device's inputs: the sub-bbox's prior block
-    uploaded as it lies in ``atlas`` (``infer.upload``), then, in
-    ``infer.slab_inputs``, the raw slab cut from the uploaded scan and
-    :func:`scan_inputs.prior_rows`. The whole bbox holds every candidate;
-    a smaller sub-bbox selects its candidates on the device and reads them
-    back for the scatter. Returns what :func:`_fcn_slab` returns."""
+def _scan_on(scan: _Scan, device: torch.device, wire: np.ndarray,
+             centers: np.ndarray, stats, patch: bool, request) -> _Scan:
+    """``scan`` on a further ``device`` of a multi-device call: ``wire``
+    and the centers uploaded there, and for the patch engine (``patch``)
+    the volume it gathers from."""
+    volume, centers_d = _upload_scan(wire, centers, device, request)
+    if patch:
+        volume = _gather_volume(volume, stats)
+    return scan._replace(volume=volume, centers=centers_d)
+
+
+def _ready(scan) -> _Scan:
+    """``scan``, or the result of the future that uploads it."""
+    return scan.result() if isinstance(scan, Future) else scan
+
+
+def _slab_inputs(scan, stats, atlas, lo, dims, prior_dtype, centers,
+                 request=None):
+    """One sub-bbox's inputs on the device of ``scan`` (a :class:`_Scan`
+    or its future): the sub-bbox's prior block uploaded as it lies in
+    ``atlas`` (``infer.upload``), then, in ``infer.slab_inputs``, the slab
+    cut from the scan and :func:`scan_inputs.prior_rows`. The whole bbox
+    holds every candidate; a smaller sub-bbox selects its candidates on
+    the device and reads them back for the scatter.
+
+    Returns (slab, rows, lin, norm, cs): the raw slab, with ``norm`` the
+    :func:`fcn_forward_slab` argument that normalizes it; ``cs`` the
+    sub-bbox's candidates on the host, and ``lin`` their linear bbox
+    indices, or None where they fill the bbox (the dense head: a row for
+    every bbox voxel and no gather). None where no candidate lies
+    inside."""
+    scan = _ready(scan)
     bx, by, bz = dims
-    device = card.volume.device
-    with span("infer.upload") as rec:
+    device = scan.volume.device
+    with span("infer.upload", request) as rec:
         block = atlas[lo[0]:lo[0] + bx, lo[1]:lo[1] + by, lo[2]:lo[2] + bz]
+        if block.shape[:3] != tuple(dims):
+            # fcn_spmd's last sub-slab may reach past the volume's end,
+            # where no candidate lies: rows there are never read
+            block = np.pad(block, [(0, d - s) for d, s in zip(
+                dims, block.shape[:3])] + [(0, 0)])
         rec.set(bytes=block.nbytes)
         block = _upload(block, device)
-    with span("infer.slab_inputs") as rec:
-        if np.array_equal(lo, card.lo) and tuple(dims) == card.dims:
-            cs, cs_d = centers, card.centers
+    with span("infer.slab_inputs", request) as rec:
+        if np.array_equal(lo, scan.lo) and tuple(dims) == scan.dims:
+            cs, cs_d = centers, scan.centers
         else:
-            c = card.centers
+            c = scan.centers
             inside = torch.ones(len(c), dtype=torch.bool, device=device)
             for k in range(3):
                 inside &= (c[:, k] >= int(lo[k])) & (c[:, k]
@@ -523,48 +397,132 @@ def _fcn_slab_card(net, card: _CardInputs, stats, atlas, lo, dims,
             cs = cs_d.cpu().numpy()
             if len(cs) == 0:
                 return None  # nothing to classify here
-        # candidates that fill the bbox take the dense head: a row for
-        # every bbox voxel and no gather
         sparse = len(cs) < bx * by * bz
         vecs, lin = scan_inputs.prior_rows(block, cs_d if sparse else None,
                                            lo, prior_dtype)
-        src, dst = _slab_window(lo, dims, card.volume.shape)
+        src, dst = _slab_window(lo, dims, scan.volume.shape)
         # voxels outside the volume are left unset: the forward's norm
         # zeroes everything outside [dst.start, dst.stop)
-        slab = card.volume.new_empty((bx + RF, by + RF, bz + RF))
-        slab[dst] = card.volume[src]
+        slab = scan.volume.new_empty((bx + RF, by + RF, bz + RF))
+        slab[dst] = scan.volume[src]
         rec.set(rows=len(vecs))
     mean, std = stats
     scale = torch.tensor([mean, 1.0 / std], dtype=torch.float32).to(device)
     norm = (scale, tuple(s.start for s in dst), tuple(s.stop for s in dst))
-    labels_b, probs_b = _fcn_forward(net, slab, vecs, lin, norm, want_probs,
-                                     probs_dtype)
-    return labels_b, probs_b, lo, dims, centers, cs if sparse else None
+    return slab, vecs, lin, norm, cs
 
 
-def _normalized_padded(image: np.ndarray, device: torch.device,
-                       stats=None, raw=None) -> torch.Tensor:
-    """The halo-padded, nonzero-normalized float32 volume on ``device``
-    (``stats``: ``image``'s :func:`normalize_stats`, computed if None;
-    ``raw``: the raw scan on ``device`` already, or None).
+def _fcn_slab(net, scan, lo, dims, *, stats, atlas, centers, prior_dtype,
+              probs_dtype, want_probs, request=None):
+    """One sub-bbox through the dense evaluator on the device of ``scan``:
+    :func:`_slab_inputs`, :func:`fcn_forward_slab` and the read-back, each
+    a span of ``request`` (None: the request of the span open on this
+    thread). Returns the arguments of :func:`_fcn_scatter_results` before
+    the volumes, or None where no candidate lies inside."""
+    inputs = _slab_inputs(scan, stats, atlas, lo, dims, prior_dtype,
+                          centers, request)
+    if inputs is None:
+        return None
+    slab, vecs, lin, norm, cs = inputs
+    with span("infer.forward", request):
+        labels_b, probs_b = fcn_forward_slab(
+            net, slab, vecs, want_probs,
+            probs_dtype=getattr(torch, np.dtype(probs_dtype).name),
+            gather_idx=lin, norm=norm)
+    labels_b, probs_b = _readback(labels_b, probs_b if want_probs else None,
+                                  request)
+    return labels_b, probs_b, lo, dims, cs, lin is None
 
-    Narrow integer scans (the usual int16 T1) upload raw and normalize on
-    the device with the same float32 ``(x - mean) * inv_std`` arithmetic as
-    the host path (JAX: infer.py:86-96, ``_pad_normalize_device``); other
-    dtypes normalize on the host. Halo voxels are 0 in normalized space.
-    """
-    mean, std = normalize_stats(image) if stats is None else stats
-    if _raw_wire(image):
-        scal = torch.tensor([mean, 1.0 / std], dtype=torch.float32,
-                            device=device)
-        if raw is None:
-            raw = torch.from_numpy(image).to(device)
-        norm = (raw.to(torch.float32) - scal[0]) * scal[1]
-    else:
-        norm = torch.from_numpy(
-            (image.astype(np.float32) - np.float32(mean))
-            * np.float32(1.0 / std)).to(device)
-    return pad_volume(norm)
+
+def _normalized_padded(volume: torch.Tensor, stats) -> torch.Tensor:
+    """The halo-padded, nonzero-normalized float32 volume on the device of
+    ``volume``, the scan as it went up (:func:`_wire`); ``stats`` are the
+    scan's :func:`normalize_stats`. One float32 ``(x - mean) * inv_std``
+    for every scan type (JAX: infer.py:86-96, ``_pad_normalize_device``);
+    halo voxels are 0 in normalized space."""
+    mean, std = stats
+    scal = torch.tensor([mean, 1.0 / std], dtype=torch.float32,
+                        device=volume.device)
+    return pad_volume((volume.to(torch.float32) - scal[0]) * scal[1])
+
+
+def _gather_volume(volume: torch.Tensor, stats) -> torch.Tensor:
+    """The patch engine's volume: :func:`_normalized_padded`, on a card in
+    the gather kernel's two layouts (the plain padded volume freed
+    there)."""
+    volume = _normalized_padded(volume, stats)
+    return prepare_gather_volume(volume) if volume.is_cuda else volume
+
+
+def _patch_part(net, scan, rows: slice, vecs: np.ndarray, *, chunk,
+                want_probs, probs_dtype, request=None):
+    """The patch engine over ``rows`` of the centers on the device of
+    ``scan`` (a :class:`_Scan` whose volume is :func:`_gather_volume`'s,
+    or its future): their prior rows ``vecs`` uploaded,
+    :func:`forward_centers` chunk by chunk, the read-back. Returns
+    (labels, probs or None, rows)."""
+    scan = _ready(scan)
+    with span("infer.upload", request, bytes=vecs.nbytes):
+        vecs = _upload(vecs, scan.volume.device)
+    with span("infer.forward", request):
+        labels, probs = forward_centers(
+            net, scan.volume, scan.centers[rows], vecs, chunk, want_probs,
+            probs_dtype=getattr(torch, np.dtype(probs_dtype).name))
+    return _readback(labels, probs if want_probs else None, request) + (rows,)
+
+
+def spmd_sub_bboxes(lo, dims, ndev: int) -> list:
+    """The ``ndev`` (lo, dims) sub-slabs of one bbox (fcn_sharded.py:
+    172-187): equal cuts of its largest axis, the last of which may
+    reach past the bbox, where no candidate lies."""
+    axis = int(np.argmax(dims))
+    step = -(-int(dims[axis]) // ndev)
+    out = []
+    for d in range(ndev):
+        sub_lo = np.asarray(lo, np.int32).copy()
+        sub_lo[axis] += d * step
+        sub_dims = [int(v) for v in dims]
+        sub_dims[axis] = step
+        out.append((sub_lo, tuple(sub_dims)))
+    return out
+
+
+def _dense_jobs(lo, dims, entries: int, max_voxels: int, spmd: bool):
+    """The dense engine's (entry, (lo, dims)) sub-bboxes over ``entries``
+    device entries, the JAX package's geometry (infer.py:367-452,
+    529-547): on one entry, sub-bboxes of at most ``max_voxels``; with
+    ``spmd``, one equal sub-slab per entry (:func:`spmd_sub_bboxes`)
+    inside an outer split that keeps each within ``max_voxels``; else
+    sub-bboxes of at most ``ceil(bbox voxels / entries)``, dealt
+    round-robin, so that every entry gets work."""
+    if entries == 1:
+        return [(0, b) for b in _split_bbox(lo, dims, max_voxels)]
+    if spmd:
+        return [(i, b)
+                for outer in _split_bbox(lo, dims, entries * max_voxels)
+                for i, b in enumerate(spmd_sub_bboxes(*outer, entries))]
+    cap = min(max_voxels, max(1, -(-int(np.prod(dims)) // entries)))
+    return [(i % entries, b)
+            for i, b in enumerate(_split_bbox(lo, dims, cap))]
+
+
+def _deal(work, jobs, entries, nets, scans, workers, scatter) -> None:
+    """``work(nets[d], scans[d], *args)`` for each (entry, args) of
+    ``jobs``, ``d`` the entry's device, each result handed to ``scatter``
+    in order: on this thread where ``workers`` is None, else on the
+    entry's thread of ``workers``, with at most ``2 x`` its entries' jobs
+    in flight before the host scatters the oldest."""
+    pending = deque()
+    for i, args in jobs:
+        dev = entries[i]
+        if workers is None:
+            scatter(work(nets[dev], scans[dev], *args))
+            continue
+        pending.append(workers.submit(i, work, nets[dev], scans[dev], *args))
+        while len(pending) > 2 * len(entries):
+            scatter(pending.popleft().result())
+    while pending:
+        scatter(pending.popleft().result())
 
 
 def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
@@ -583,45 +541,51 @@ def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
     oversized bboxes split into sub-slabs of at most
     ``fcn_max_bbox_voxels``), "patch", or "auto", which picks "fcn" unless
     the bbox exceeds 30x the candidate count (infer.py:517-523).
-    ``prior_dtype`` is the dense path's prior fixed point; the patch path
-    takes float32 rows, as in JAX. The device work runs with TF32 off
+    ``prior_dtype`` is the dense path's prior fixed point (uint8, uint16,
+    float16 or float32; another raises); the patch path takes float32
+    rows, as in JAX. The device work runs with TF32 off
     (:func:`~subcort_tpu_torch.config.exact_float32`).
 
-    ``devices``, a list of more than one ``torch.device`` (an entry may
-    repeat), fans the work out from this process, one host thread per
-    entry (infer.py:529-547, 634-649): the patch engine over whole chunks
-    of the centers (:func:`~subcort_tpu_torch.parallel.infer_sharded.
-    predict_labels_sharded`); the dense engine over equal sub-slabs of the
-    candidate bbox, one per entry (``fcn_spmd``, the default:
-    :func:`~subcort_tpu_torch.parallel.fcn_sharded.fcn_run_spmd`), or over
-    sub-bboxes of at most ``ceil(bbox voxels / entries)`` dealt round-robin
-    (``fcn_spmd=False``). ``None`` or one entry is the single-device path.
+    Every call takes one path. The scan goes to the (first) device as it
+    is where it is a narrow integer, else as float32 (:func:`_wire`), with
+    the centers; :func:`_prepare` derives the statistics and the bbox
+    there for a narrow-integer scan, on the host for any other. The dense
+    engine then cuts each sub-bbox's slab on the device and derives its
+    prior rows there (:func:`_slab_inputs`,
+    :mod:`~subcort_tpu_torch.ops.scan_inputs`); the patch engine
+    normalizes the uploaded scan on the device and gathers from it, with
+    the candidates' prior rows from the host. The results are bit-equal
+    to the host's derivation.
 
-    On one device (a card or the CPU) a narrow-integer scan goes to the
-    device as it is, with the centers, and the device derives the scan's
-    statistics, the bbox, each slab and the prior rows
-    (:func:`_card_inputs`, :mod:`~subcort_tpu_torch.ops.scan_inputs`);
-    the results are bit-equal to the host's derivation.
+    ``devices``, a list of more than one ``torch.device`` (an entry may
+    repeat), fans the same work out from this process, one host thread
+    per entry (infer.py:529-547, 634-649), each further distinct device
+    taking its own upload once: the patch engine over parts of whole
+    chunks of the centers, one per entry; the dense engine over equal
+    sub-slabs of the candidate bbox, one per entry (``fcn_spmd``, the
+    default), or over sub-bboxes of at most ``ceil(bbox voxels /
+    entries)`` dealt round-robin (``fcn_spmd=False``;
+    :func:`_dense_jobs`). ``None`` or one entry runs on this thread.
 
     The call is one ``infer.segment_volume`` span, its stages spans under
-    it (``infer.prepare``, then per slab or for the patch engine's centers
-    ``infer.slab_inputs``, ``infer.upload``, ``infer.forward``,
-    ``infer.readback`` and ``infer.scatter``; PERF.md §3). Where the
-    device derives the inputs, ``infer.prepare`` has ``on_card`` 1 and the
-    upload of the scan and the centers as a child ``infer.upload``, and
-    each slab's prior block goes up in an ``infer.upload`` before its
-    ``infer.slab_inputs``.
+    it (PERF.md §3): ``infer.prepare``, with the upload of the scan and
+    the centers as a child ``infer.upload``; then per sub-bbox
+    ``infer.upload`` (its prior block), ``infer.slab_inputs``,
+    ``infer.forward``, ``infer.readback`` and ``infer.scatter``, or per
+    part of the patch engine's centers the same less ``infer.slab_inputs``
+    (its ``infer.upload`` carries the prior rows).
     """
     if engine not in ("auto", "fcn", "patch"):
         raise ValueError(f"unknown engine {engine!r}")
     with span("infer.segment_volume"):
-        with span("infer.prepare") as prep:
+        with span("infer.prepare"):
             if devices is not None and len(devices) == 1:
                 device, devices = devices[0], None
             if devices is not None:
-                devices = [torch.device(d) for d in devices]
-            elif device is None:
-                device = next(net.parameters()).device
+                entries = [torch.device(d) for d in devices]
+            else:
+                entries = [torch.device(device) if device is not None
+                           else next(net.parameters()).device]
             image = np.asarray(image)
             shape = tuple(int(s) for s in image.shape)
             centers = np.asarray(centers, np.int32).reshape(-1, 3)
@@ -638,76 +602,60 @@ def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
                 # the reference's batch generator yields zero batches:
                 # all-zero outputs (base.py:379-380,414-417)
                 return label_vol, prob_vol
-            card = None
-            if _card_inputs(image, engine, devices, prior_dtype):
-                card, stats = _prepare_on_card(image, centers,
-                                               torch.device(device))
-                lo, dims = card.lo, card.dims
-                _count_card_inputs()
-            else:
-                lo, hi = centers.min(axis=0), centers.max(axis=0) + 1
-                _check_centers(lo, hi, shape)
-                lo, dims = _bbox_from(lo, hi, shape)
-                stats = normalize_stats(image)
-            prep.set(on_card=int(card is not None))
+            wire = _wire(image)
+            scan, stats = _prepare(image, wire, centers, entries[0])
             if engine == "auto":
-                engine = "fcn" if int(np.prod(dims)) <= 30 * n else "patch"
-            if engine == "patch" and devices is None:
-                # the patch engine's prior rows, host prep as the dense
-                # engine's slab cut is
+                engine = ("fcn" if int(np.prod(scan.dims)) <= 30 * n
+                          else "patch")
+            if engine == "patch":
                 vecs = _atlas_vectors_host(atlas, centers)
-        fcn_args = (image, stats, atlas, centers, label_vol, prob_vol,
-                    want_probs, prior_dtype, probs_dtype)
+                scan = scan._replace(volume=_gather_volume(scan.volume,
+                                                           stats))
+        request = current_request()
+        if engine == "patch":
+            work = functools.partial(_patch_part, chunk=chunk,
+                                     want_probs=want_probs,
+                                     probs_dtype=probs_dtype,
+                                     request=request)
+            jobs = [(i, (rows, vecs[rows])) for i, rows in enumerate(
+                shard_rows(n, len(entries), align=chunk))
+                if rows.stop > rows.start]
+
+            def scatter(res):
+                labels, probs, rows = res
+                with span("infer.scatter"):
+                    _scatter_centers(labels, probs, centers[rows],
+                                     label_vol, prob_vol)
+        else:
+            work = functools.partial(_fcn_slab, stats=stats, atlas=atlas,
+                                     centers=centers,
+                                     prior_dtype=prior_dtype,
+                                     probs_dtype=probs_dtype,
+                                     want_probs=want_probs, request=request)
+            jobs = _dense_jobs(scan.lo, scan.dims, len(entries),
+                               fcn_max_bbox_voxels, fcn_spmd)
+
+            def scatter(res):
+                if res is not None:  # None: no candidate in the sub-bbox
+                    with span("infer.scatter"):
+                        _fcn_scatter_results(*res, label_vol, prob_vol,
+                                             want_probs)
+
         with exact_float32():
-            if devices is not None:
-                _segment_on_devices(net, devices, engine, lo, dims, chunk,
-                                    fcn_max_bbox_voxels, fcn_spmd, *fcn_args)
+            if len(entries) == 1:
+                _deal(work, jobs, entries, {entries[0]: net},
+                      {entries[0]: scan}, None, scatter)
                 return label_vol, prob_vol
-            if engine == "fcn" and card is not None:
-                for sub_lo, sub_dims in _split_bbox(lo, dims,
-                                                    fcn_max_bbox_voxels):
-                    _fcn_scatter(_fcn_slab_card(
-                        net, card, stats, atlas, sub_lo, sub_dims,
-                        prior_dtype, probs_dtype, centers, want_probs),
-                        label_vol, prob_vol, want_probs)
-                return label_vol, prob_vol
-            if engine == "fcn":
-                _fcn_run_bboxes({torch.device(device): net}, image, stats,
-                                atlas,
-                                _split_bbox(lo, dims, fcn_max_bbox_voxels),
-                                *fcn_args[3:], None)
-                return label_vol, prob_vol
-
-            with span("infer.upload") as rec:
-                # where the prepare uploaded the raw scan and the centers,
-                # the patch engine takes them from there
-                rec.set(bytes=vecs.nbytes + (0 if card is not None else (
-                    image.nbytes if _raw_wire(image) else 4 * image.size)
-                    + centers.nbytes))
-                volume = _normalized_padded(
-                    image, device, stats,
-                    None if card is None else card.volume)
-                if volume.is_cuda:
-                    # the kernel's two layouts, once per scan; the plain
-                    # padded volume is freed here
-                    volume = prepare_gather_volume(volume)
-                centers_d = (torch.from_numpy(centers).to(device)
-                             if card is None else card.centers)
-                vecs = torch.from_numpy(vecs).to(device)
-            with span("infer.forward"):
-                labels, probs = forward_centers(
-                    net, volume, centers_d, vecs, chunk, want_probs,
-                    probs_dtype=getattr(torch, np.dtype(probs_dtype).name))
-        labels, probs = _readback(labels, probs if want_probs else None)
-        with span("infer.scatter"):
-            _scatter_centers(labels, probs, centers, label_vol, prob_vol)
+            with DeviceWorkers(entries) as workers:
+                scans = {entries[0]: scan}
+                for i, dev in enumerate(entries):
+                    if dev not in scans:
+                        scans[dev] = workers.submit(
+                            i, _scan_on, scan, dev, wire, centers, stats,
+                            engine == "patch", request)
+                _deal(work, jobs, entries, replicate(net, entries), scans,
+                      workers, scatter)
         return label_vol, prob_vol
-
-
-def _count_card_inputs() -> None:
-    global CARD_INPUTS
-    with _CARD_INPUTS_LOCK:
-        CARD_INPUTS += 1
 
 
 def _scatter_centers(labels, probs, centers, label_vol, prob_vol) -> None:
@@ -716,44 +664,6 @@ def _scatter_centers(labels, probs, centers, label_vol, prob_vol) -> None:
     if probs is not None:
         prob_vol[centers[:, 0], centers[:, 1], centers[:, 2]] = \
             _dequantize_probs(probs)
-
-
-def _segment_on_devices(net, devices, engine, lo, dims, chunk,
-                        fcn_max_bbox_voxels, fcn_spmd, image, stats, atlas,
-                        centers, label_vol, prob_vol, want_probs, prior_dtype,
-                        probs_dtype) -> None:
-    """:func:`segment_volume`'s multi-device branch: ``net`` replicated
-    once per distinct device, one host thread per entry of ``devices``,
-    whose spans carry the call's request."""
-    nets = replicate(net, devices)
-    with DeviceWorkers(devices) as workers:
-        if engine == "patch":
-            from subcort_tpu_torch.parallel.infer_sharded import \
-                predict_labels_sharded
-            labels, probs = predict_labels_sharded(
-                nets, workers, image, centers,
-                _atlas_vectors_host(atlas, centers), chunk, want_probs,
-                probs_dtype, stats)
-            with span("infer.scatter"):
-                _scatter_centers(labels, probs, centers, label_vol, prob_vol)
-        elif fcn_spmd:
-            from subcort_tpu_torch.parallel.fcn_sharded import fcn_run_spmd
-
-            # one sub-slab per entry, inside an outer split that keeps each
-            # entry's slab within fcn_max_bbox_voxels
-            for sub_lo, sub_dims in _split_bbox(
-                    lo, dims, len(devices) * fcn_max_bbox_voxels):
-                fcn_run_spmd(nets, workers, image, stats, atlas, sub_lo,
-                             sub_dims, centers, label_vol, prob_vol,
-                             want_probs, prior_dtype, probs_dtype)
-        else:
-            # split finely enough that every entry gets work
-            vox = int(np.prod(dims))
-            cap = min(fcn_max_bbox_voxels, max(1, -(-vox // len(devices))))
-            _fcn_run_bboxes(nets, image, stats, atlas,
-                            _split_bbox(lo, dims, cap), centers, label_vol,
-                            prob_vol, want_probs, prior_dtype, probs_dtype,
-                            workers)
 
 
 def _data_parallel_devices(options: Options) -> Optional[list]:

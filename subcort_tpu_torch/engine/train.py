@@ -70,6 +70,7 @@ from subcort_tpu_torch.models.importer import (load_theano_checkpoint,
 from subcort_tpu_torch.models.triplanar import (DEFAULT_SPEC, Params,
                                                 TriPlanarNet, TriPlanarSpec,
                                                 init_params, update_bn_ema)
+from subcort_tpu_torch.ops import gather_kernel
 from subcort_tpu_torch.ops.gather_kernel import (gather_triplanar_cuda,
                                                  prepare_gather_volume)
 from subcort_tpu_torch.ops.patches import Patches
@@ -628,7 +629,7 @@ class Trainer:
     def from_handoff(cls, hand: dict, device: torch.device) -> "Trainer":
         """A rank's trainer on ``device``: the handed-off options, state and
         history of the trainer that started the ranks
-        (:func:`~subcort_tpu_torch.parallel.distributed.write_handoff`)."""
+        (:func:`write_handoff`)."""
         options = dataclasses.replace(hand["options"], load_weights=False)
         trainer = cls(options, hand["spec"], hand["weights_path"],
                       params=_to_torch(hand["state"]["params"]),
@@ -845,11 +846,11 @@ class Trainer:
     def hand_off(self, workdir: Path, index: TrainingIndex, max_epochs: int,
                  _eager: bool = False) -> None:
         """Write into ``workdir`` what each rank of a fit of this trainer
-        reads (:func:`~subcort_tpu_torch.parallel.distributed.train_rank`):
+        reads (:func:`train_rank`):
         the index as ``.npy`` files the ranks memory-map, this trainer's
         options, state and history, and whether the ranks run the plain
         loop."""
-        distributed.write_handoff(Path(workdir), index, {
+        write_handoff(Path(workdir), index, {
             "options": self.options, "spec": self.spec,
             "weights_path": self.weights_path, "config": self._config,
             "state": self.state(), "history": self.history,
@@ -871,7 +872,7 @@ class Trainer:
                   f"{distributed.backend_for(self.devices)}")
         with tempfile.TemporaryDirectory(prefix="subcort_ranks_") as work:
             self.hand_off(Path(work), index, max_epochs, _eager)
-            distributed.launch(distributed.train_rank, self.devices, (work,),
+            distributed.launch(train_rank, self.devices, (work,),
                                timeout=distributed.FIT_TIMEOUT_S)
             results = []
             for rank in range(len(self.devices)):
@@ -885,3 +886,53 @@ class Trainer:
             for rank, step in enumerate(self.rank_steps):
                 print(f"    rank {rank}'s steps: {json.dumps(step)}")
         return self.history
+
+
+# ------------------------------------------------------------ the ranks
+INDEX_FIELDS = ("volumes", "centers", "labels", "atlas")
+
+
+def write_handoff(workdir: Path, index, trainer_state: dict) -> None:
+    """What every rank of a data-parallel ``fit`` reads: the index arrays
+    as ``.npy`` files (memory-mapped by the ranks, never pickled per rank)
+    and the trainer's state."""
+    for name in INDEX_FIELDS:
+        np.save(workdir / f"{name}.npy", np.ascontiguousarray(
+            getattr(index, name)))
+    with open(workdir / "trainer.pkl", "wb") as fh:
+        pickle.dump({**trainer_state, "subject_names":
+                     list(index.subject_names)}, fh)
+
+
+def train_rank(rank: int, world: int, device: torch.device,
+               workdir: str) -> None:
+    """One rank of ``Trainer.fit`` over several devices: rebuild the
+    trainer on ``device`` from the handoff, fit (graphed where
+    :func:`~subcort_tpu_torch.parallel.distributed.step_capturable`, unless the handoff asks for the plain loop),
+    and leave the rank's result in ``workdir``: every rank's gather
+    launches and what ran its steps (``step``: ``graphed``, the
+    ``warmup_steps``, ``replays`` and ``capture_ms`` of its captured step,
+    or zeros and None for the plain loop); rank 0's history and final
+    state."""
+    work = Path(workdir)
+    with open(work / "trainer.pkl", "rb") as fh:
+        hand = pickle.load(fh)
+    # copy-on-write maps: torch takes only writable arrays
+    index = TrainingIndex(*(np.load(work / f"{name}.npy", mmap_mode="c")
+                            for name in INDEX_FIELDS),
+                          hand["subject_names"])
+    trainer = Trainer.from_handoff(hand, device)
+    gather_kernel.LAUNCHES = 0
+    history = trainer.fit(index, hand["max_epochs"], _eager=hand["eager"])
+    graph = trainer.step_graph
+    result = {"launches": gather_kernel.LAUNCHES, "step": {
+        "graphed": graph is not None,
+        "warmup_steps": graph.warmup_calls if graph else 0,
+        "replays": graph.replays if graph else 0,
+        "capture_ms": graph.capture_ms if graph else None}}
+    if rank == 0:
+        result.update(history=history, state=trainer.state())
+    tmp = work / f"rank{rank}.tmp"
+    with open(tmp, "wb") as fh:
+        pickle.dump(result, fh)
+    os.replace(tmp, work / f"rank{rank}.pkl")

@@ -2,11 +2,12 @@
 moments and the candidates' extent (:func:`scan_moments`), and the
 candidates' prior rows and linear bbox indices (:func:`prior_rows`).
 
-What the host computed in numpy for each scan
-(``engine/infer.py``: :func:`~subcort_tpu_torch.ops.normalize.normalize_stats`,
-``_bbox_of`` and the range check, ``_fcn_slab_inputs``' candidate indices,
+What the JAX package computes in numpy on its host for each scan
+(:func:`~subcort_tpu_torch.ops.normalize.normalize_stats`, ``_bbox_of``
+and the range check, ``_fcn_slab_inputs``' candidate indices,
 ``_atlas_vectors_host`` and ``_quantize_priors``), computed where the raw
-scan, the centers and the prior block already lie. On a CUDA tensor each
+scan, the centers and the prior block already lie; ``engine/infer.py``
+derives every dense scan's inputs so. On a CUDA tensor each
 function launches its kernel in ``csrc/scan_inputs.cu`` (its header says
 what bounds it and how it works) on the current stream without a host
 sync, or raises; on a CPU tensor it runs its plain version,
@@ -81,7 +82,8 @@ def _numpy_sum(p: torch.Tensor) -> torch.Tensor:
 
 
 def _wire(p: torch.Tensor, prior_dtype) -> torch.Tensor:
-    """Float32 rows in ``prior_dtype`` as ``_quantize_priors`` writes them:
+    """Float32 rows in ``prior_dtype`` as the JAX package's
+    ``_quantize_priors`` writes them:
     uint8 and uint16 as ``np.round(p * scale).astype(...)`` (round half to
     even, then numpy's cast: to int32, INT32_MIN outside its range or for
     NaN, the low bits kept), float16 and float32 a plain cast."""
@@ -102,7 +104,8 @@ def prior_rows_plain(block: torch.Tensor, centers: Optional[torch.Tensor],
     ``centers`` (N, 3) int32 voxels inside it, or None for every block
     voxel in C order. Each row takes the background fix-up of
     ``_atlas_vectors_host`` (a row whose float32 sum is 0 becomes channel
-    14 = 1, the rest 0) and the wire type of ``_quantize_priors``; ``lin``
+    14 = 1, the rest 0) and the wire type of the JAX package's
+    ``_quantize_priors``; ``lin``
     is each center's int64 linear bbox index, None without centers."""
     bx, by, bz, _ = block.shape
     if centers is None:

@@ -2,8 +2,9 @@
 subcort_tpu/parallel/).
 
 Inference fans out from one process over a list of devices, one host
-thread per entry (``infer_sharded``: the patch engine; ``fcn_sharded``:
-the dense evaluator); training runs one process per device
+thread per entry (``mesh.DeviceWorkers``, which
+``engine.infer.segment_volume`` deals its slabs and parts over); training
+runs one process per device
 (``distributed.launch``) with the step's collectives in ``sync_bn``; a
 multi-host folder sweep joins one process group (``distributed.initialize``)
 and takes its share of the subjects (``distributed.host_shard``).

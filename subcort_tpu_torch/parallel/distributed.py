@@ -29,15 +29,12 @@ from __future__ import annotations
 import atexit
 import datetime
 import os
-import pickle
 import sys
 import time
 import traceback
 from multiprocessing.connection import wait
-from pathlib import Path
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -282,57 +279,3 @@ def launch(target, devices: Sequence[torch.device], args: tuple = (),
                 p.terminate()
         for p in procs:
             p.join()
-
-
-# ----------------------------------------------------------------- training
-INDEX_FIELDS = ("volumes", "centers", "labels", "atlas")
-
-
-def write_handoff(workdir: Path, index, trainer_state: dict) -> None:
-    """What every rank of a data-parallel ``fit`` reads: the index arrays
-    as ``.npy`` files (memory-mapped by the ranks, never pickled per rank)
-    and the trainer's state."""
-    for name in INDEX_FIELDS:
-        np.save(workdir / f"{name}.npy", np.ascontiguousarray(
-            getattr(index, name)))
-    with open(workdir / "trainer.pkl", "wb") as fh:
-        pickle.dump({**trainer_state, "subject_names":
-                     list(index.subject_names)}, fh)
-
-
-def train_rank(rank: int, world: int, device: torch.device,
-               workdir: str) -> None:
-    """One rank of ``Trainer.fit`` over several devices: rebuild the
-    trainer on ``device`` from the handoff, fit (graphed where
-    :func:`step_capturable`, unless the handoff asks for the plain loop),
-    and leave the rank's result in ``workdir``: every rank's gather
-    launches and what ran its steps (``step``: ``graphed``, the
-    ``warmup_steps``, ``replays`` and ``capture_ms`` of its captured step,
-    or zeros and None for the plain loop); rank 0's history and final
-    state."""
-    from subcort_tpu_torch.engine.data import TrainingIndex
-    from subcort_tpu_torch.engine.train import Trainer
-    from subcort_tpu_torch.ops import gather_kernel
-
-    work = Path(workdir)
-    with open(work / "trainer.pkl", "rb") as fh:
-        hand = pickle.load(fh)
-    # copy-on-write maps: torch takes only writable arrays
-    index = TrainingIndex(*(np.load(work / f"{name}.npy", mmap_mode="c")
-                            for name in INDEX_FIELDS),
-                          hand["subject_names"])
-    trainer = Trainer.from_handoff(hand, device)
-    gather_kernel.LAUNCHES = 0
-    history = trainer.fit(index, hand["max_epochs"], _eager=hand["eager"])
-    graph = trainer.step_graph
-    result = {"launches": gather_kernel.LAUNCHES, "step": {
-        "graphed": graph is not None,
-        "warmup_steps": graph.warmup_calls if graph else 0,
-        "replays": graph.replays if graph else 0,
-        "capture_ms": graph.capture_ms if graph else None}}
-    if rank == 0:
-        result.update(history=history, state=trainer.state())
-    tmp = work / f"rank{rank}.tmp"
-    with open(tmp, "wb") as fh:
-        pickle.dump(result, fh)
-    os.replace(tmp, work / f"rank{rank}.pkl")

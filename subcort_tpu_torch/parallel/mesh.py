@@ -5,9 +5,9 @@ candidate-voxel axis (inference) is split over devices, and the 883k
 parameters are replicated. Where the JAX package builds a 1D ``('data',)``
 ``Mesh`` and lets XLA insert the collectives, the port keeps a plain list
 of ``torch.device``s: inference fans out from one process over the list
-(:mod:`~subcort_tpu_torch.parallel.infer_sharded`,
-:mod:`~subcort_tpu_torch.parallel.fcn_sharded`), and training runs one
-process per device (:mod:`~subcort_tpu_torch.parallel.distributed`).
+(:class:`DeviceWorkers`, one host thread per entry, which
+``engine.infer.segment_volume`` deals its work over), and training runs
+one process per device (:mod:`~subcort_tpu_torch.parallel.distributed`).
 """
 
 from __future__ import annotations

@@ -134,6 +134,26 @@ def test_port_sources_and_chip_smoke_name_no_jax_import():
         assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_parallel_modules_import_no_engine():
+    """The mechanism layer stays below the engine: no import statement,
+    at any depth, in a module under ``subcort_tpu_torch/parallel/`` names
+    ``subcort_tpu_torch.engine`` or anything in it."""
+    files = sorted((REPO / "subcort_tpu_torch" / "parallel").glob("*.py"))
+    assert len(files) >= 4
+    for path in files:
+        names = []
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names += [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                assert node.level == 0, f"{path.name}: a relative import"
+                names += [node.module] + [f"{node.module}.{alias.name}"
+                                          for alias in node.names]
+        bad = [n for n in names if n == "subcort_tpu_torch.engine"
+               or n.startswith("subcort_tpu_torch.engine.")]
+        assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
 # the JAX package's exports with no counterpart in the port: its
 # functional forward (the port's is TriPlanarNet) and its compilation cache
 NOT_EXPORTED = {"apply", "apply_branch", "enable_compilation_cache", "timer"}
@@ -166,8 +186,7 @@ def test_port_exports_what_the_jax_package_exports(package):
                                     "subcort_tpu_torch.utils.runtime",
                                     "subcort_tpu_torch.parallel.distributed",
                                     "subcort_tpu_torch.parallel.sync_bn",
-                                    "subcort_tpu_torch.parallel.infer_sharded",
-                                    "subcort_tpu_torch.parallel.fcn_sharded",
+                                    "subcort_tpu_torch.engine.train",
                                     "subcort_tpu_torch.utils.graphs",
                                     "subcort_tpu_torch.engine.views",
                                     "subcort_tpu_torch.models.fastsurfer",
@@ -176,8 +195,9 @@ def test_new_modules_alone_import_no_jax(module):
     """Each module of the command-line and multi-device slices, and the
     CUDA-graph helper of the registration levels and the train multistep,
     alone in a fresh interpreter (the CLI's parser built as well), loads
-    no ``jax`` or ``subcort_tpu`` module; ``parallel.distributed`` holds
-    the entry of every rank the trainer spawns."""
+    no ``jax`` or ``subcort_tpu`` module; ``parallel.distributed``
+    launches every rank the trainer spawns, and ``engine.train`` holds
+    the rank's entry."""
     code = (f"import sys, importlib\n"
             f"m = importlib.import_module({module!r})\n"
             "getattr(m, '_build_parser', lambda: None)()\n"

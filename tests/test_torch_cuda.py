@@ -5,7 +5,7 @@ CPU, the post-process's component filter kernel against scipy (MNI-sized
 noise, a snake past the plain version's sweep cap, ties), the dense scan's
 input kernels (``scan_moments``, ``prior_rows``) against their plain
 versions at MNI size and ``segment_volume`` through them against the
-host's derivation, registration levels replayed from a CUDA graph against the plain loop
+same call with the plain versions on the CPU, registration levels replayed from a CUDA graph against the plain loop
 (also captured on a second thread while the main one segments), the train
 multistep and ``Trainer.fit`` replaying one captured step against the
 plain loop (float32, bfloat16, patch 40, a learning-rate schedule, a
@@ -668,20 +668,27 @@ def test_scan_input_kernels_match_plain_at_mni_size(cuda_device, voxels):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["int16", "uint16", "split", "float32_wire"])
+@pytest.mark.parametrize("case", ["int16", "uint16", "split", "float32_wire",
+                                  "float32_scan", "two_entries"])
 def test_segment_volume_card_inputs_equal_the_host_path(cuda_device,
                                                         monkeypatch, case):
-    """An MNI-sized scan through ``segment_volume`` on the card: the
-    inputs derived there (two launches a call with one sub-bbox, one more
-    for each further sub-bbox) give the labels and probabilities of the
-    host's derivation bit for bit; split: sub-bboxes of at most 200,000
-    voxels, each selecting its candidates on the card."""
+    """An MNI-sized scan through ``segment_volume``'s one path on the card:
+    the inputs derived there by the kernels (two launches a call with one
+    sub-bbox, one more for each further sub-bbox; a float32 scan takes its
+    statistics and bbox from the host) give the labels and probabilities
+    of the same call with the plain versions run on the CPU, bit for bit.
+    The forward stays on the card, whose convolutions round otherwise
+    than the CPU's. split: sub-bboxes of at most 200,000 voxels, each
+    selecting its candidates on the card; two_entries: ``[cuda:0,
+    cuda:0]``, one sub-slab each."""
     from subcort_tpu_torch.engine import infer
     from subcort_tpu_torch.ops import scan_inputs
 
     image, atlas, centers = _mni_scan_inputs(2)
     if case == "uint16":
         image = image.astype(np.uint16)
+    elif case == "float32_scan":
+        image = image.astype(np.float32)
     spec = TriPlanarSpec(conv_filters=(8, 8, 8, 8, 8), fc_conv=16,
                          fc_fc=16, fc2=16)
     net = TriPlanarNet.from_params(
@@ -690,19 +697,34 @@ def test_segment_volume_card_inputs_equal_the_host_path(cuda_device,
     kw = dict(want_probs=True, engine="fcn")
     if case == "split":
         kw["fcn_max_bbox_voxels"] = 200_000
-    if case == "float32_wire":
+    elif case == "float32_wire":
         kw.update(prior_dtype=np.float32, probs_dtype=np.float32)
-    slabs = len(list(infer._split_bbox(
-        *infer._bbox_of(centers, image.shape),
-        kw.get("fcn_max_bbox_voxels", 6_000_000))))
-    before, calls = scan_inputs.LAUNCHES, infer.CARD_INPUTS
+    elif case == "two_entries":
+        kw["devices"] = [cuda_device, cuda_device]
+    lo, dims = infer._bbox_of(centers, image.shape)
+    slabs = len(infer._dense_jobs(lo, dims, len(kw.get("devices", [0])),
+                                  kw.get("fcn_max_bbox_voxels", 6_000_000),
+                                  True))
+    before = scan_inputs.LAUNCHES
     got = segment_volume(net, image, atlas, centers, **kw)
-    assert scan_inputs.LAUNCHES == before + 1 + slabs
-    assert infer.CARD_INPUTS == calls + 1
-    monkeypatch.setattr(infer, "_card_inputs", lambda *a: False)
+    torch.cuda.synchronize()
+    assert scan_inputs.LAUNCHES == before + (case != "float32_scan") + slabs
+
+    def on_the_cpu(plain):
+        def run(*args):
+            out = plain(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                          for a in args))
+            dev = args[0].device
+            return (out.to(dev) if isinstance(out, torch.Tensor) else
+                    tuple(None if t is None else t.to(dev) for t in out))
+        return run
+
+    monkeypatch.setattr(scan_inputs, "scan_moments",
+                        on_the_cpu(scan_inputs.scan_moments_plain))
+    monkeypatch.setattr(scan_inputs, "prior_rows",
+                        on_the_cpu(scan_inputs.prior_rows_plain))
     want = segment_volume(net, image, atlas, centers, **kw)
-    assert scan_inputs.LAUNCHES == before + 1 + slabs
-    assert infer.CARD_INPUTS == calls + 1
+    assert scan_inputs.LAUNCHES == before + (case != "float32_scan") + slabs
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
 
@@ -1309,7 +1331,7 @@ def test_nccl_rank_graphed_fit_equals_eager_fit(cuda_device,
                                                 deterministic_cudnn,
                                                 tmp_path):
     """One NCCL rank (world 1) runs Trainer.fit as a fit over several
-    cards runs each rank (distributed.train_rank): graphed by default, 2
+    cards runs each rank (train.train_rank): graphed by default, 2
     warm-up steps and the rest replayed with the gradient all-reduce
     inside the graph, and bit-equal to the same rank's _eager fit: the
     history, the parameters and BN EMA, Adam's state and the step

@@ -374,13 +374,14 @@ def test_numpy_helper_copies_match_jax_package(phantom, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "int16"])
 def test_normalized_padded_volume_bit_equal_to_jax(phantom, dtype):
-    """The volume the gather reads: int16 uploads raw and normalizes on the
-    device (JAX: ``_pad_normalize_device``), float32 normalizes on the host;
-    both bit-equal to the JAX package's, halo included."""
+    """The volume the gather reads, normalized on the device from the
+    uploaded scan (int16 as it is, float32 as float32): bit-equal to the
+    JAX package's (int16: ``_pad_normalize_device``; float32: its host
+    normalization), halo included."""
     import jax.numpy as jnp
     from subcort_tpu.engine.infer import _pad_normalize_device
     from subcort_tpu.ops import normalize_stats, pad_volume as jax_pad
-    from subcort_tpu_torch.engine.infer import _normalized_padded
+    from subcort_tpu_torch.engine.infer import _normalized_padded, _wire
 
     image = phantom[0].astype(dtype)
     mean, std = normalize_stats(image)
@@ -390,6 +391,6 @@ def test_normalized_padded_volume_bit_equal_to_jax(phantom, dtype):
     else:
         want = jax_pad(jnp.asarray((image - np.float32(mean))
                                    * np.float32(1.0 / std)))
-    got = _normalized_padded(image, torch.device("cpu"))
+    got = _normalized_padded(torch.from_numpy(_wire(image)), (mean, std))
     assert got.dtype == torch.float32 and got.is_contiguous()
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))

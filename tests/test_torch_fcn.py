@@ -37,10 +37,10 @@ from subcort_tpu.models import init_params as jax_init_params
 from subcort_tpu.models.triplanar import DEFAULT_SPEC as JAX_SPEC
 from subcort_tpu_torch.config import Options
 from subcort_tpu_torch.engine import SegmentationEngine, segment_volume
-from subcort_tpu_torch.engine.infer import (_fcn_slab_inputs,
-                                            _quantize_priors)
+from subcort_tpu_torch.engine import infer
 from subcort_tpu_torch.models import TriPlanarNet, params_from_jax
 from subcort_tpu_torch.models import fcn
+from subcort_tpu_torch.ops import scan_inputs
 from subcort_tpu_torch.ops.normalize import normalize_stats
 from subcort_tpu_torch.ops.patches import gather_triplanar, pad_volume
 
@@ -163,7 +163,9 @@ def test_prior_quantization_bit_equal_to_jax(rng, prior_dtype, compute_dtype):
     vecs /= vecs.sum(1, keepdims=True)
     vecs[:3] = 0.0
     vecs[:3, 14] = 1.0
-    q = _quantize_priors(vecs, np.dtype(prior_dtype))
+    q = scan_inputs.prior_rows_plain(torch.from_numpy(vecs[:, None, None]),
+                                     None, (0, 0, 0),
+                                     np.dtype(prior_dtype))[0].numpy()
     want_q = jax_quantize(vecs, np.dtype(prior_dtype))
     assert q.dtype == want_q.dtype
     np.testing.assert_array_equal(q, want_q)
@@ -344,26 +346,34 @@ def test_bfloat16_normalizes_in_float32_first(net, phantom):
                                 (70, 0, 0), (70, 60, 55)])
 @pytest.mark.parametrize("dtype", ["float32", "int16"])
 def test_slab_cut_matches_jax(rng, lo, dtype):
-    """The host slab cut, borders and past-the-end origins included: the
-    same slab and normalization bounds as JAX's, and an all-zero slab where
-    the sub-bbox lies beyond the volume."""
+    """The device slab cut (on the CPU), borders and past-the-end origins
+    included, normalized by ``fcn_forward_slab``'s ``_normalize_slab``:
+    the JAX package's slab (for int16, its raw slab normalized by its own
+    bounds), the same bounds, and an all-zero slab where the sub-bbox lies
+    beyond the volume."""
     image = (rng.random((40, 44, 40)) * 800 + 100).astype(dtype)
     atlas = rng.random((40, 44, 40, 15)).astype(np.float32)
     lo, dims = np.asarray(lo, np.int32), (16, 14, 12)
     stats = normalize_stats(image)
-    slab, _, _, _, norm = _fcn_slab_inputs(image, stats, atlas, lo, dims,
-                                           image.shape, np.float32)
+    centers = lo[None].copy()
+    scan = infer._Scan(torch.from_numpy(infer._wire(image)),
+                       torch.from_numpy(centers), lo, dims)
+    slab, _, _, norm, _ = infer._slab_inputs(scan, stats, atlas, lo, dims,
+                                             np.float32, centers)
+    got = fcn._normalize_slab(slab, *norm, torch.float32).numpy()
     want, _, _, _, want_norm = jax_slab_inputs(
         image, stats, atlas, lo, dims, image.shape, JAX_SPEC, np.float32)
-    np.testing.assert_array_equal(slab, want)
-    assert slab.dtype == want.dtype
-    assert (norm is None) == (want_norm is None) == (dtype == "float32")
-    if norm is not None:
-        np.testing.assert_array_equal(norm[0], want_norm[0])
+    assert (want_norm is None) == (dtype == "float32")
+    if want_norm is not None:
+        np.testing.assert_array_equal(norm[0].numpy(), want_norm[0])
         assert norm[1:] == tuple(tuple(int(v) for v in w)
                                  for w in want_norm[1:])
+        want = fcn._normalize_slab(torch.from_numpy(want),
+                                   torch.from_numpy(want_norm[0]),
+                                   *want_norm[1:], torch.float32).numpy()
+    np.testing.assert_array_equal(got, want)
     if lo[0] >= 40 + fcn.HALF:
-        assert not slab.any()
+        assert not got.any()
 
 
 def test_slab_flops_matches_jax():

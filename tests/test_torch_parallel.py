@@ -1,6 +1,6 @@
 """PyTorch port: inference over several devices from one process
-(``segment_volume(devices=...)``: ``parallel/infer_sharded.py``,
-``parallel/fcn_sharded.py`` and the dense host fan-out), against the
+(``segment_volume(devices=...)``: the patch engine's parts and the dense
+engine's sub-slabs dealt over ``DeviceWorkers``), against the
 port's own single-device run and the JAX package's multi-device run on its
 8 virtual CPU devices (tests/conftest.py), in the style of
 tests/test_parallel.py.
@@ -33,7 +33,6 @@ from subcort_tpu_torch.engine import test_scan as port_test_scan
 from subcort_tpu_torch.io import NiftiImage, load_nii, save_nii
 from subcort_tpu_torch.models import (TriPlanarNet, TriPlanarSpec, fcn,
                                       params_from_jax)
-from subcort_tpu_torch.parallel import fcn_sharded, infer_sharded
 from subcort_tpu_torch.parallel.mesh import shard_rows
 
 torch.set_num_threads(1)
@@ -87,20 +86,22 @@ def test_patch_engine_over_devices_matches_one_device_and_jax(
     image, atlas, centers = _scan(k, shape=(26, 30, 24), n=800)
     assert len(centers) % (k * 64)
     parts = []
-    real = infer_sharded.forward_centers
-    monkeypatch.setattr(infer_sharded, "forward_centers",
+    real = infer.forward_centers
+    monkeypatch.setattr(infer, "forward_centers",
                         lambda net, vol, c, *a, **kw: parts.append(len(c))
                         or real(net, vol, c, *a, **kw))
     kw = dict(want_probs=True, engine="patch", chunk=64,
               probs_dtype=np.float32)
     one_l, one_p = segment_volume(net, image, atlas, centers, **kw)
-    assert parts == []  # one device: no fan-out
+    assert parts == [len(centers)]  # one device: one part
+    parts.clear()
     got_l, got_p = segment_volume(net, image, atlas, centers,
                                   devices=[CPU] * k, **kw)
     want = [s.stop - s.start
             for s in shard_rows(len(centers), k, align=64)]
     if k == 1:
-        assert parts == []  # a one-entry list is the single-device path
+        # a one-entry list is the single-device path
+        assert parts == [len(centers)]
     else:
         assert sorted(parts) == sorted(p for p in want if p)
         assert all(p % 64 == 0 for p in want[:-1])
@@ -129,7 +130,7 @@ def test_dense_engine_over_devices_matches_one_device_and_jax(
     sel = _sel(centers)
     one_l, one_p = segment_volume(net, image, atlas, centers, **kw)
     lo, dims = infer._bbox_of(centers, image.shape)
-    subs = (fcn_sharded.spmd_sub_bboxes(lo, dims, 4) if fcn_spmd else list(
+    subs = (infer.spmd_sub_bboxes(lo, dims, 4) if fcn_spmd else list(
         infer._split_bbox(lo, dims, -(-int(np.prod(dims)) // 4))))
     before = fcn.SLABS
     got_l, got_p = segment_volume(net, image, atlas, centers,
@@ -157,7 +158,7 @@ def test_dense_spmd_shards_without_candidates_run_nothing(net, jax_params):
     kw = dict(engine="fcn", prior_dtype=np.float32)
     one_l, _ = segment_volume(net, image, atlas, centers, **kw)
     lo, dims = infer._bbox_of(centers, image.shape)
-    holding = _holding(centers, fcn_sharded.spmd_sub_bboxes(lo, dims, 4))
+    holding = _holding(centers, infer.spmd_sub_bboxes(lo, dims, 4))
     assert holding < 4
     before = fcn.SLABS
     got_l, _ = segment_volume(net, image, atlas, centers, devices=[CPU] * 4,
@@ -194,18 +195,18 @@ def test_slab_count_holds_under_many_threads(net):
     np.testing.assert_array_equal(got_l, one_l)
 
 
-def _record_slabs(monkeypatch, module):
-    """Record the (lo, dims) of every sub-bbox ``module``'s
-    ``_fcn_slab_inputs`` is asked to cut."""
+def _record_slabs(monkeypatch, module, name, at):
+    """Record the (lo, dims) of every sub-bbox ``module``'s ``name`` is
+    asked to cut, from its arguments at ``at`` and ``at + 1``."""
     seen = []
-    real = module._fcn_slab_inputs
+    real = getattr(module, name)
 
     def spy(*args, **kw):
-        seen.append((tuple(int(v) for v in args[3]),
-                     tuple(int(v) for v in args[4])))
+        seen.append((tuple(int(v) for v in args[at]),
+                     tuple(int(v) for v in args[at + 1])))
         return real(*args, **kw)
 
-    monkeypatch.setattr(module, "_fcn_slab_inputs", spy)
+    monkeypatch.setattr(module, name, spy)
     return seen
 
 
@@ -218,8 +219,8 @@ def test_split_geometry_matches_jax(net, jax_params, monkeypatch, fcn_spmd):
     image, atlas, centers = _scan(9, shape=(40, 34, 28), n=1500)
     kw = dict(engine="fcn", prior_dtype=np.float32,
               fcn_max_bbox_voxels=4000)
-    mine = _record_slabs(monkeypatch, infer)
-    theirs = _record_slabs(monkeypatch, jax_infer)
+    mine = _record_slabs(monkeypatch, infer, "_fcn_slab", 2)
+    theirs = _record_slabs(monkeypatch, jax_infer, "_fcn_slab_inputs", 3)
     got_l, _ = segment_volume(net, image, atlas, centers, devices=[CPU] * 3,
                               fcn_spmd=fcn_spmd, **kw)
     jax_l, _ = jax_segment_volume(jax_params, image, atlas, centers,
@@ -271,8 +272,8 @@ def test_test_scan_over_devices_reads_fcn_spmd(net, tmp_path, monkeypatch,
     port_test_scan(net, str(sub / "T1.nii.gz"), options)
     want = [load_nii(str(sub / name)).data for name in outputs]
     calls = []
-    real = fcn_sharded.fcn_run_spmd
-    monkeypatch.setattr(fcn_sharded, "fcn_run_spmd",
+    real = infer.spmd_sub_bboxes
+    monkeypatch.setattr(infer, "spmd_sub_bboxes",
                         lambda *a, **kw: calls.append(1) or real(*a, **kw))
     port_test_scan(net, str(sub / "T1.nii.gz"), options, devices=[CPU, CPU])
     assert bool(calls) == fcn_spmd

@@ -278,15 +278,15 @@ def test_gloo_ranks_report_eager_steps(tmp_path, capsys):
 
 # ------------------------------------------------------------ the card's
 def train_ranks(rank, world, device, workdirs):
-    """``distributed.train_rank`` on each handoff of ``workdirs`` in turn,
+    """``train.train_rank`` on each handoff of ``workdirs`` in turn,
     in one rank process (tests/test_torch_cuda.py: a graphed and an eager
     fit of one NCCL rank)."""
     for workdir in workdirs:
-        distributed.train_rank(rank, world, device, workdir)
+        train.train_rank(rank, world, device, workdir)
 
 
 def failing_capture_rank(rank, world, device, workdir):
-    """``distributed.train_rank`` with a step that reads a value back, which
+    """``train.train_rank`` with a step that reads a value back, which
     the eager warm-up steps run and a capture refuses. Each call of the
     step adds one to ``workdir``'s ``calls`` file."""
     calls = Path(workdir) / "calls"
@@ -299,4 +299,4 @@ def failing_capture_rank(rank, world, device, workdir):
         float(self.losses.sum())
 
     train.TrainMultistep.step = step
-    distributed.train_rank(rank, world, device, workdir)
+    train.train_rank(rank, world, device, workdir)

@@ -1,20 +1,24 @@
 """PyTorch port: the dense scan's inputs derived on the device
 (``ops/scan_inputs.py``), on the CPU through the kernels' plain versions.
 
-Held bit-equal to the host helpers they replace: the moments give
+Held bit-equal to the JAX package's host derivation: the moments give
 ``normalize_stats``' statistics and ``_bbox_of``'s bbox, and the prior
-rows and indices ``_fcn_slab_inputs``' (``_atlas_vectors_host`` and
-``_quantize_priors``). ``segment_volume`` through them gives the labels and
-probabilities of the host's derivation; ``CARD_INPUTS`` and
-``infer.prepare``'s ``on_card`` say where it engaged. The JAX package
-holds the new path too: ``tests/test_torch_fcn.py``'s int16 scans take it.
+rows and indices those of its ``_fcn_slab_inputs``
+(``_atlas_vectors_host`` and ``_quantize_priors``). ``segment_volume``,
+which takes this one path for every scan, engine and device count, gives
+the labels and probabilities of a forward over the JAX package's slab and
+rows. ``tests/test_torch_fcn.py`` holds it to the JAX package's
+``segment_volume`` too.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from subcort_tpu.engine import infer as jax_infer
+from subcort_tpu.models.triplanar import DEFAULT_SPEC as JAX_SPEC
 from subcort_tpu_torch.engine import infer, segment_volume
+from subcort_tpu_torch.models.fcn import fcn_forward_slab
 from subcort_tpu_torch.models import TriPlanarNet, TriPlanarSpec, init_params
 from subcort_tpu_torch.ops import scan_inputs
 from subcort_tpu_torch.ops.normalize import (normalize_stats,
@@ -105,16 +109,17 @@ def test_squares_past_2_53_take_the_host_statistics(monkeypatch, size):
     host = []
     monkeypatch.setattr(infer, "normalize_stats",
                         lambda im: host.append(1) or normalize_stats(im))
-    _, stats = infer._prepare_on_card(image, centers, CPU)
+    _, stats = infer._prepare(image, infer._wire(image), centers, CPU)
     assert stats == normalize_stats(image)
     assert len(host) == (size == "past_2_53")
 
 
 @pytest.mark.parametrize("case", ["zero_scan", "zero_variance",
                                   "center_outside", "negative_center"])
-def test_errors_as_the_host_path(net, monkeypatch, case):
-    """An all-zero scan, a constant one and centers outside the volume
-    raise the host path's ValueError, word for word."""
+def test_errors_as_the_host_path(net, case):
+    """An all-zero int16 scan, a constant one and centers outside the
+    volume raise the ValueError that a float32 copy of the scan raises
+    through the host's statistics and bbox, word for word."""
     image, atlas, centers = _phantom()
     if case == "zero_scan":
         image[:] = 0
@@ -126,23 +131,14 @@ def test_errors_as_the_host_path(net, monkeypatch, case):
         centers[-1, 2] = -1
     with pytest.raises(ValueError) as card:
         segment_volume(net, image, atlas, centers)
-    monkeypatch.setattr(infer, "_card_inputs", lambda *a: False)
     with pytest.raises(ValueError) as host:
-        segment_volume(net, image, atlas, centers)
+        segment_volume(net, image.astype(np.float32), atlas, centers)
     assert str(card.value) == str(host.value)
 
 
-def _host_slabs(image, atlas, centers, cap, prior_dtype):
-    """(lo, dims, vecs, cs, lin) of every sub-bbox, as _fcn_slab_inputs
-    derives them on the host."""
-    lo, dims = infer._bbox_of(centers, image.shape)
-    out = []
-    for sub_lo, sub_dims in infer._split_bbox(lo, dims, cap):
-        _, vecs, cs, lin, _ = infer._fcn_slab_inputs(
-            image, normalize_stats(image), atlas, sub_lo, sub_dims,
-            image.shape, prior_dtype, centers)
-        out.append((sub_lo, sub_dims, vecs, cs, lin))
-    return out
+def _host_rows(atlas, cs):
+    """The JAX package's prior rows of the candidates ``cs``, in float32."""
+    return jax_infer._atlas_vectors_host(atlas, cs)
 
 
 @pytest.mark.parametrize("prior_dtype", [np.uint16, np.uint8, np.float32,
@@ -150,12 +146,13 @@ def _host_slabs(image, atlas, centers, cap, prior_dtype):
 @pytest.mark.parametrize("case", ["unsorted_duplicates", "fills_bbox",
                                   "sub_bboxes"])
 def test_prior_rows_equal_the_host_rows(prior_dtype, case):
-    """The plain prior rows and indices equal _fcn_slab_inputs' in every
-    wire type: scrambled candidates with repeats (sparse), candidates
-    that fill their bbox (dense: a row for every block voxel, no
-    indices), and several sub-bboxes, each selecting its candidates; with
-    mixed-sign rows, one that sums to zero and one whose sum depends on
-    the order of the adds, and an all-zero row."""
+    """The plain prior rows and indices equal the JAX package's
+    (``_quantize_priors`` of ``_atlas_vectors_host``, and the linear bbox
+    indices) in every wire type: scrambled candidates with repeats
+    (sparse), candidates that fill their bbox (dense: a row for every
+    block voxel, no indices), and several sub-bboxes, each selecting its
+    candidates; with mixed-sign rows, one that sums to zero and one whose
+    sum depends on the order of the adds, and an all-zero row."""
     rows = (ZERO_ROW, ORDER_ROW)
     image, atlas, centers = _phantom(rows=rows)
     cap = 6_000_000
@@ -171,25 +168,37 @@ def test_prior_rows_equal_the_host_rows(prior_dtype, case):
             atlas[tuple(c)][:len(row)] = row
     else:
         cap = 700
-    slabs = _host_slabs(image, atlas, centers, cap, prior_dtype)
+    lo, dims = infer._bbox_of(centers, image.shape)
+    slabs = list(infer._split_bbox(lo, dims, cap))
     assert (len(slabs) > 1) == (case == "sub_bboxes")
-    for lo, dims, want_vecs, cs, want_lin in slabs:
-        if want_vecs is None:
-            continue
+    for lo, dims in slabs:
         inside = np.all((centers >= lo) & (centers < lo + np.asarray(dims)),
                         axis=1)
-        sel = torch.from_numpy(centers[inside])
-        block = torch.from_numpy(atlas[lo[0]:lo[0] + dims[0],
-                                       lo[1]:lo[1] + dims[1],
-                                       lo[2]:lo[2] + dims[2]])
+        cs = centers[inside]
+        if len(cs) == 0:
+            continue
+        block = atlas[lo[0]:lo[0] + dims[0], lo[1]:lo[1] + dims[1],
+                      lo[2]:lo[2] + dims[2]]
+        dense = len(cs) == np.prod(dims)
+        assert dense == (case == "fills_bbox")
         got_vecs, got_lin = scan_inputs.prior_rows(
-            block, None if cs is None else sel, lo, prior_dtype)
+            torch.from_numpy(block), None if dense else torch.from_numpy(cs),
+            lo, prior_dtype)
+        if dense:
+            grid = np.stack(np.meshgrid(*(np.arange(l, l + d) for l, d in
+                                          zip(lo, dims)), indexing="ij"),
+                            -1).reshape(-1, 3)
+            want_vecs = jax_infer._quantize_priors(
+                _host_rows(atlas, grid), prior_dtype)
+        else:
+            want_vecs = jax_infer._quantize_priors(_host_rows(atlas, cs),
+                                                   prior_dtype)
+            rel = cs.astype(np.int64) - lo
+            want_lin = (rel[:, 0] * dims[1] + rel[:, 1]) * dims[2] + rel[:, 2]
+            np.testing.assert_array_equal(got_lin.numpy(), want_lin)
         assert got_vecs.numpy().dtype == want_vecs.dtype
         np.testing.assert_array_equal(got_vecs.numpy(), want_vecs)
-        assert (got_lin is None) == (want_lin is None) == (
-            case == "fills_bbox")
-        if want_lin is not None:
-            np.testing.assert_array_equal(got_lin.numpy(), want_lin)
+        assert (got_lin is None) == dense
 
 
 def test_order_row_is_not_fixed_up():
@@ -199,22 +208,61 @@ def test_order_row_is_not_fixed_up():
     p[0, :4] = ORDER_ROW
     assert p.sum(axis=1)[0] == 2.0 ** -25
     assert np.cumsum(p[0], dtype=np.float32)[-1] == 0.0
-    np.testing.assert_array_equal(infer._atlas_vectors_host(
+    np.testing.assert_array_equal(jax_infer._atlas_vectors_host(
         p[None, None], np.zeros((1, 3), np.int32)), p)
+
+
+def _host_derivation(net, image, atlas, centers, want_probs=False,
+                     fcn_max_bbox_voxels=6_000_000, prior_dtype=np.uint16,
+                     probs_dtype=np.uint8):
+    """``segment_volume(engine="fcn")`` with every sub-bbox's slab and norm
+    from the JAX package's ``_fcn_slab_inputs`` (its slab cut) and the
+    rows from its ``_quantize_priors(_atlas_vectors_host(...))``, through
+    the port's ``fcn_forward_slab`` and a plain scatter."""
+    stats = normalize_stats(image)
+    label_vol = np.zeros(image.shape, np.uint8)
+    prob_vol = np.zeros(image.shape + (15,), np.float32)
+    lo, dims = jax_infer._bbox_of(centers, image.shape)
+    for lo, dims in jax_infer._split_bbox(lo, dims, fcn_max_bbox_voxels):
+        slab, dense_vecs, _, _, norm = jax_infer._fcn_slab_inputs(
+            image, stats, atlas, lo, dims, image.shape, JAX_SPEC,
+            prior_dtype)
+        cs = centers[np.all((centers >= lo)
+                            & (centers < lo + np.asarray(dims)), axis=1)]
+        if len(cs) == 0:
+            continue
+        rel = cs.astype(np.int64) - lo
+        lin = (rel[:, 0] * dims[1] + rel[:, 1]) * dims[2] + rel[:, 2]
+        dense = len(cs) >= np.prod(dims)
+        vecs = (dense_vecs if dense else jax_infer._quantize_priors(
+            jax_infer._atlas_vectors_host(atlas, cs), prior_dtype))
+        labels, probs = fcn_forward_slab(
+            net, torch.from_numpy(slab), torch.from_numpy(vecs), want_probs,
+            probs_dtype=getattr(torch, np.dtype(probs_dtype).name),
+            gather_idx=None if dense else torch.from_numpy(lin),
+            norm=(torch.from_numpy(norm[0]), tuple(norm[1]), tuple(norm[2])))
+        at = lin if dense else slice(None)
+        label_vol[tuple(cs.T)] = labels.numpy().reshape(-1)[at]
+        if want_probs:
+            probs = probs.numpy()[at]
+            prob_vol[tuple(cs.T)] = (
+                probs.astype(np.float32) * np.float32(1.0 / 255.0)
+                if probs.dtype == np.uint8 else probs)
+    return label_vol, prob_vol if want_probs else None
 
 
 @pytest.mark.parametrize("case", ["int16", "uint16", "sub_bboxes",
                                   "fills_bbox", "float32_wire",
                                   "duplicates"])
-def test_segment_volume_equals_the_host_derivation(net, monkeypatch, case):
-    """Labels and probabilities through the device's derivation equal the
-    host's bit for bit: an int16 and a uint16 scan (sparse, uint16 priors,
-    uint8 probabilities), several sub-bboxes, candidates that fill their
-    bbox, float32 priors and probabilities, scrambled candidates with
-    repeats."""
+def test_segment_volume_equals_the_host_derivation(net, case):
+    """Labels and probabilities through the device's derivation equal a
+    forward over the JAX package's host derivation bit for bit: an int16
+    and a uint16 scan (sparse, uint16 priors, uint8 probabilities),
+    several sub-bboxes, candidates that fill their bbox, float32 priors
+    and probabilities, scrambled candidates with repeats."""
     image, atlas, centers = _phantom(
         dtype=np.uint16 if case == "uint16" else np.int16)
-    kw = dict(want_probs=True, engine="fcn")
+    kw = dict(want_probs=True)
     if case == "sub_bboxes":
         kw["fcn_max_bbox_voxels"] = 700
     elif case == "fills_bbox":
@@ -226,12 +274,8 @@ def test_segment_volume_equals_the_host_derivation(net, monkeypatch, case):
     elif case == "duplicates":
         perm = np.random.default_rng(2).permutation(len(centers))
         centers = np.concatenate([centers[perm], centers[perm][:53]])
-    calls = infer.CARD_INPUTS
-    got = segment_volume(net, image, atlas, centers, **kw)
-    assert infer.CARD_INPUTS == calls + 1
-    monkeypatch.setattr(infer, "_card_inputs", lambda *a: False)
-    want = segment_volume(net, image, atlas, centers, **kw)
-    assert infer.CARD_INPUTS == calls + 1
+    got = segment_volume(net, image, atlas, centers, engine="fcn", **kw)
+    want = _host_derivation(net, image, atlas, centers, **kw)
     assert (want[0][tuple(centers.T)] != 0).any()
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
@@ -239,26 +283,41 @@ def test_segment_volume_equals_the_host_derivation(net, monkeypatch, case):
 
 
 @pytest.mark.parametrize("case", ["int16", "float32_scan", "two_devices",
-                                  "patch_engine"])
-def test_card_inputs_engage_where_they_should(net, case):
-    """``CARD_INPUTS`` and ``infer.prepare``'s ``on_card`` engage for a
-    narrow-integer scan on one device, and not for a float scan, two
-    device entries or the patch engine; no kernel launches on the CPU."""
+                                  "patch_engine", "float64_scan",
+                                  "int32_scan"])
+def test_card_inputs_engage_where_they_should(net, monkeypatch, case):
+    """Every scan takes the one path: the scan as it goes up (int16 as it
+    is, float32, float64 and int32 as float32) and the centers uploaded
+    as a child of ``infer.prepare``, then ``prior_rows`` for the dense
+    engine (on one device or two entries) or ``_normalized_padded`` of the
+    uploaded scan for the patch engine; no kernel launches on the CPU."""
     image, atlas, centers = _phantom()
     kw = dict(engine="auto")
-    if case == "float32_scan":
-        image = image.astype(np.float32)
+    if case.endswith("_scan"):
+        image = image.astype(case[:-len("_scan")])
     elif case == "two_devices":
         kw["devices"] = [CPU, CPU]
     elif case == "patch_engine":
         kw.update(engine="patch", chunk=256)
-    calls, launches = infer.CARD_INPUTS, scan_inputs.LAUNCHES
+    calls = {"prior_rows": 0, "_normalized_padded": 0}
+    for module, name in ((scan_inputs, "prior_rows"),
+                         (infer, "_normalized_padded")):
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, _real=real, _name=name:
+                            calls.__setitem__(_name, calls[_name] + 1)
+                            or _real(*a))
+    launches = scan_inputs.LAUNCHES
     runtime.clear_records()
     with recording():
         segment_volume(net, image, atlas, centers, **kw)
-    engaged = int(case == "int16")
-    assert infer.CARD_INPUTS == calls + engaged
-    assert scan_inputs.LAUNCHES == launches
-    (prepare,) = [r for r in records() if r.name == "infer.prepare"]
+    recs = records()
     runtime.clear_records()
-    assert prepare.attrs["on_card"] == engaged
+    assert scan_inputs.LAUNCHES == launches
+    patch = case == "patch_engine"
+    assert calls["_normalized_padded"] == int(patch)
+    assert (calls["prior_rows"] > 0) == (not patch)
+    (prepare,) = [r for r in recs if r.name == "infer.prepare"]
+    (upload,) = [r for r in recs if r.name == "infer.upload"
+                 and r.parent == prepare.id]
+    wire = 2 if image.dtype == np.int16 else 4
+    assert upload.attrs["bytes"] == wire * image.size + centers.nbytes

@@ -158,9 +158,9 @@ def test_off_fit_records_nothing_and_equals_on(tmp_path):
 @pytest.mark.parametrize("engine", ["fcn", "patch"])
 def test_segment_volume_span_tree(net, phantom, engine):
     """One request, the stages of PERF.md §3 under the root (the upload
-    of the raw int16 scan and the centers under ``infer.prepare``, whose
-    ``on_card`` says the device derived the inputs), the upload's and
-    readback's bytes, the slab's prior rows."""
+    of the raw int16 scan and the centers under ``infer.prepare``, for
+    either engine), the upload's and readback's bytes, the slab's prior
+    rows."""
     with recording():
         _segment(net, phantom, engine)
     recs = records()
@@ -168,7 +168,10 @@ def test_segment_volume_span_tree(net, phantom, engine):
     names = {r.name for r in recs} - {"infer.segment_volume"}
     assert names == STAGES[engine]
     (prepare,) = [r for r in recs if r.name == "infer.prepare"]
-    assert prepare.attrs["on_card"] == (engine == "fcn")
+    image, centers = phantom[0], phantom[3]
+    (scan_upload,) = [r for r in recs if r.name == "infer.upload"
+                      and r.parent == prepare.id]
+    assert scan_upload.attrs["bytes"] == image.nbytes + centers.nbytes
     for r in recs:
         if r is not root:
             assert r.parent == (prepare.id if r.name == "infer.upload"
