@@ -20,15 +20,33 @@ pipeline needs:
 
 The C++ registration tools in ``native/src/nifti_io.*`` implement the same
 subset so both runtimes agree on the byte format.
+
+The write path differs from the JAX copy's in speed only: a reader gets
+the same bytes back (a plain ``.nii`` is byte-identical). A volume whose
+memory already lies in file order (``data.T`` C-contiguous, as
+:func:`load_nii` returns one) is written from that memory with no copy;
+any other is transposed a few slabs at a time (``WRITES`` counts the two).
+A ``.gz`` file is one gzip member at compresslevel 1, its voxels cut into
+runs of about :data:`DEFLATE_CHUNK` bytes, each a raw-deflate segment
+flushed to a byte boundary, so that ``gzip``, nibabel and zlib's
+``gzread`` read it as they read any other; a write of several runs
+deflates them on ``torch.get_num_threads()`` threads, one of a single run
+on the calling thread (``DEFLATED_CHUNKS`` counts the runs).
 """
 
 from __future__ import annotations
 
+import collections
 import gzip
 import os
 import struct
+import threading
+import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 # NIfTI-1 datatype codes -> numpy dtypes (the practical subset).
 _DTYPES = {
@@ -48,6 +66,26 @@ _DTYPE_CODES = {np.dtype(v): k for k, v in _DTYPES.items()}
 _HDR_SIZE = 348
 _MAGIC_SINGLE = b"n+1\x00"
 _MAGIC_PAIR = b"ni1\x00"
+
+# gzip's level for every write: nibabel's default, ~10x faster than the
+# gzip module's own (9) on multi-hundred-MB probability maps
+_GZ_LEVEL = 1
+# voxel bytes a write takes at once; a .gz write of more is deflated on
+# threads. A head's voxels cluster mid-volume and deflate far slower than the zero
+# background around them, so chunks of a few MB spread a 28 MB volume's
+# work over the threads where 8 MiB chunks left most of it in one
+DEFLATE_CHUNK = 2 << 20
+# the gzip member's header: magic, deflate, no flags; mtime; fastest (a
+# level-1 stream); unknown OS (the gzip module's)
+_GZ_MAGIC = b"\x1f\x8b\x08\x00"
+_GZ_XFL_OS = b"\x04\xff"
+
+# writes by the voxels' layout: "in_order" (streamed from memory) or
+# "transposed" (a few slabs at a time); the runs deflated
+WRITES = {"in_order": 0, "transposed": 0}
+DEFLATED_CHUNKS = 0
+# writers on several threads (the folder sweep's writer) count at once
+_LOCK = threading.Lock()
 
 
 def _pair_paths(path: str | os.PathLike):
@@ -81,9 +119,7 @@ def _open_maybe_gz(path: str | os.PathLike, mode: str):
     path = os.fspath(path)
     if path.endswith(".gz"):
         if "w" in mode:
-            # compresslevel 1 matches nibabel's default and is ~10x faster
-            # than the gzip-module default (9) on multi-hundred-MB prob maps
-            return gzip.open(path, mode, compresslevel=1)
+            return gzip.open(path, mode, compresslevel=_GZ_LEVEL)
         return gzip.open(path, mode)
     return open(path, mode)
 
@@ -248,13 +284,86 @@ def load_nii(path: str | os.PathLike) -> NiftiImage:
     return NiftiImage(data, affine, header)
 
 
-def _write_voxels(fh, data: np.ndarray) -> None:
-    # stream the voxel data in F-order without materializing a second
-    # full-volume copy: F-order bytes of `data` == C-order bytes of
-    # `data.T`, chunked along the slowest F axis
+def _count(in_order: bool, chunks: int) -> None:
+    global DEFLATED_CHUNKS
+    with _LOCK:
+        WRITES["in_order" if in_order else "transposed"] += 1
+        DEFLATED_CHUNKS += chunks
+
+
+def _deflate(raw, last: bool) -> bytes:
+    """``raw`` as one raw-deflate segment at :data:`_GZ_LEVEL`, flushed to
+    a byte boundary, or finished when it is the stream's ``last``."""
+    c = zlib.compressobj(_GZ_LEVEL, zlib.DEFLATED, -zlib.MAX_WBITS)
+    return c.compress(raw) + c.flush(zlib.Z_FINISH if last
+                                     else zlib.Z_SYNC_FLUSH)
+
+
+def _chunks(ft: np.ndarray, in_order: bool):
+    """``(n, piece)``: ``piece(k)`` is the ``k``-th of ``n`` (at least one)
+    runs of the voxel bytes in file order (C order of ``ft``):
+    :data:`DEFLATE_CHUNK` bytes of the memory itself when ``in_order``,
+    else whole slabs of ``ft`` copied out together, about as many bytes or
+    one slab."""
+    if in_order:
+        flat = ft.reshape(-1).view(np.uint8)
+        size = DEFLATE_CHUNK
+        return (max(1, -(-flat.size // size)),
+                lambda k: flat[k * size:(k + 1) * size])
+    per = max(1, DEFLATE_CHUNK // ft[0].nbytes)
+    return -(-ft.shape[0] // per), lambda k: np.ascontiguousarray(
+        ft[k * per:(k + 1) * per]).reshape(-1).view(np.uint8)
+
+
+def _deflated(n: int, piece):
+    """``(raw, segment)`` for each of the ``n`` pieces in order, the last
+    segment finishing the stream: one piece deflated on the calling
+    thread, several on ``torch.get_num_threads()`` threads with at most
+    two pieces a thread in flight."""
+    def work(k):
+        raw = piece(k)
+        return raw, _deflate(raw, k == n - 1)
+
+    if n == 1:
+        yield work(0)
+        return
+    threads = max(1, torch.get_num_threads())
+    with ThreadPoolExecutor(threads) as pool:
+        pending = collections.deque()
+        for k in range(n):
+            while len(pending) < 2 * threads and k + len(pending) < n:
+                pending.append(pool.submit(work, k + len(pending)))
+            yield pending.popleft().result()
+
+
+def _write_file(path: str, head: bytes, data: np.ndarray) -> None:
+    """Write ``head`` then ``data``'s voxels in file order (x fastest) to
+    ``path`` without a second full-volume copy: F-order bytes of ``data``
+    are the C-order bytes of ``data.T``, taken from memory when they lie
+    so, else a few slabs of ``data.T`` at a time (:func:`_chunks`). A
+    ``.gz`` path gets one gzip member: its header, the pieces' segments in
+    order (:func:`_deflated`) while this thread checksums them, and one
+    CRC-32 and size trailer."""
     ft = data.T if data.ndim > 1 else data.reshape(1, -1)
-    for i in range(ft.shape[0]):
-        fh.write(np.ascontiguousarray(ft[i]).tobytes())
+    in_order = ft.flags.c_contiguous
+    n, piece = _chunks(ft, in_order)
+    gz = path.endswith(".gz")
+    with open(path, "wb") as fh:
+        if not gz:
+            fh.write(head)
+            for k in range(n):
+                fh.write(piece(k))
+        else:
+            fh.write(_GZ_MAGIC + struct.pack("<I", int(time.time()))
+                     + _GZ_XFL_OS)
+            fh.write(_deflate(head, False))
+            crc, size = zlib.crc32(head), len(head)
+            for raw, segment in _deflated(n, piece):
+                crc = zlib.crc32(raw, crc)
+                size += raw.nbytes
+                fh.write(segment)
+            fh.write(struct.pack("<II", crc, size & 0xFFFFFFFF))
+    _count(in_order, n if gz else 0)
 
 
 def save_nii(img: NiftiImage | np.ndarray, path: str | os.PathLike,
@@ -333,11 +442,8 @@ def save_nii(img: NiftiImage | np.ndarray, path: str | os.PathLike,
         hdr[344:348] = _MAGIC_PAIR
         with _open_maybe_gz(base + hdr_ext + gz, "wb") as fh:
             fh.write(bytes(hdr))
-        with _open_maybe_gz(base + img_ext + gz, "wb") as fh:
-            _write_voxels(fh, data)
+        _write_file(base + img_ext + gz, b"", data)
         return
 
     hdr[344:348] = _MAGIC_SINGLE
-    with _open_maybe_gz(path, "wb") as fh:
-        fh.write(bytes(hdr) + b"\x00" * 4)
-        _write_voxels(fh, data)
+    _write_file(p, bytes(hdr) + b"\x00" * 4, data)

@@ -215,8 +215,7 @@ def _register_masks(input_scan, atlas_dir, tools_dir, per_channel,
                 warped = resample_through_affine(
                     np.asarray(tmpl_img.data, np.float32), tmpl_img.affine,
                     A, t1_img.shape, t1_img.affine, device=device)
-                _io(save_nii,
-                    NiftiImage(warped.astype(np.float32), t1_img.affine),
+                _io(save_nii, NiftiImage(warped, t1_img.affine),
                     os.path.join(tmp, "rT1_template.nii.gz"))
         else:
             _run([os.path.join(tools, "reg_aladin"),
@@ -241,8 +240,7 @@ def _register_masks(input_scan, atlas_dir, tools_dir, per_channel,
                 warped = resample_through_cpp(
                     np.asarray(tmpl_img.data, np.float32), tmpl_img.affine,
                     grid, t1_img.shape, t1_img.affine, device=device)
-                _io(save_nii,
-                    NiftiImage(warped.astype(np.float32), t1_img.affine),
+                _io(save_nii, NiftiImage(warped, t1_img.affine),
                     os.path.join(tmp, "rT1d_template.nii.gz"))
         else:
             # pass the cost explicitly: the call's semantics must not depend
@@ -264,8 +262,7 @@ def _register_masks(input_scan, atlas_dir, tools_dir, per_channel,
                 grid = _io(load_cpp_grid, cpp, t1.affine)
                 s_atlas = resample_through_cpp(
                     np.asarray(atlas_img.data, np.float32), atlas_img.affine,
-                    grid, t1.shape, t1.affine,
-                    device=device).astype(np.float32)
+                    grid, t1.shape, t1.affine, device=device)
             elif per_channel:
                 # reference loop (base.py:530-538): one resample per channel
                 atlas_img = load_nii(atlas4d)

@@ -282,6 +282,15 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _to_numpy_file_order(t: torch.Tensor) -> np.ndarray:
+    """A resampled (X, Y, Z[, C]) ``t`` read back in NIfTI's byte order:
+    permuted to (C, Z, Y, X) and made contiguous on its device, then the
+    ``.T`` of that, so the host gets the same shape and values
+    F-contiguous, as :func:`~subcort_tpu_torch.io.load_nii` returns a
+    volume, which ``save_nii`` writes from memory with no transpose."""
+    return _to_numpy(t.permute(*range(t.ndim - 1, -1, -1)).contiguous()).T
+
+
 def _resample_affine(flo: torch.Tensor, affine, flo_inv, ref_affine,
                      ref_shape) -> torch.Tensor:
     """The device program of :func:`resample_through_affine`: ``flo`` on
@@ -295,14 +304,15 @@ def resample_through_affine(flo: np.ndarray, flo_affine: np.ndarray,
                             affine: np.ndarray, ref_shape, ref_affine,
                             device=None) -> np.ndarray:
     """Pull-resample ``flo`` (3D or 4D multichannel) into the reference grid
-    through a world affine (flo_world = A . ref_world)."""
+    through a world affine (flo_world = A . ref_world). The result is
+    F-contiguous (:func:`_to_numpy_file_order`)."""
     device = resolve_device(device)
     with torch.no_grad(), exact_float32():
         out = _resample_affine(
             _f32(np.asarray(flo, np.float32), device), affine,
             np.linalg.inv(np.asarray(flo_affine)), ref_affine,
             tuple(int(s) for s in ref_shape))
-    return _to_numpy(out)
+    return _to_numpy_file_order(out)
 
 
 def _bspline_axis_matrix(n: int, spacing, nc: int, vox_offset: float,
@@ -374,11 +384,12 @@ def resample_through_cpp(flo: np.ndarray, flo_affine: np.ndarray,
                          grid: CppGrid, ref_shape, ref_affine,
                          device=None) -> np.ndarray:
     """Pull-resample through a B-spline control grid (all channels in one
-    pass: the reference's 15-subprocess loop becomes one device program)."""
+    pass: the reference's 15-subprocess loop becomes one device program).
+    The result is F-contiguous (:func:`_to_numpy_file_order`)."""
     device = resolve_device(device)
     with torch.no_grad(), exact_float32():
         out = _resample_cpp(
             _f32(np.asarray(flo, np.float32), device), grid.disp,
             spacing3(grid.spacing), np.linalg.inv(np.asarray(flo_affine)),
             ref_affine, tuple(int(s) for s in ref_shape))
-    return _to_numpy(out)
+    return _to_numpy_file_order(out)

@@ -966,6 +966,55 @@ def test_register_masks_on_the_card(cuda_device, tmp_path):
     assert torch.cuda.max_memory_allocated(cuda_device) >= peak
 
 
+@pytest.mark.cuda
+def test_register_masks_writes_file_order_on_the_card(cuda_device, tmp_path,
+                                                      monkeypatch):
+    """register_masks on the card, the deflate chunk cut to 64 KiB so that
+    every volume goes through the threaded writer: the priors' voxels are
+    ``resample_through_cpp``'s output through the call's own grid, the
+    mask is ``_roi_mask`` of those priors, and the priors and both
+    templates were written in file order (the control grid and the mask,
+    dilated by scipy in C order, transposed)."""
+    from scipy import ndimage
+
+    from subcort_tpu_torch.io import NiftiImage, load_nii, nifti, save_nii
+    from subcort_tpu_torch.registration import (load_cpp_grid,
+                                                make_synthetic_atlas,
+                                                register_masks,
+                                                resample_through_cpp)
+    from subcort_tpu_torch.registration.driver import ATLAS_NAME, _roi_mask
+
+    monkeypatch.setattr(nifti, "DEFLATE_CHUNK", 1 << 16)
+    atlas_dir = str(tmp_path / "atlases")
+    template, _ = make_synthetic_atlas(atlas_dir, shape=(36, 40, 34))
+    subject = ndimage.shift(template, (1.5, -1.0, 0.5),
+                            order=1).astype(np.float32)
+    (tmp_path / "subj").mkdir()
+    scan = str(tmp_path / "subj" / "T1.nii.gz")
+    save_nii(NiftiImage(subject), scan)
+    writes, chunks = dict(nifti.WRITES), nifti.DEFLATED_CHUNKS
+    register_masks(scan, atlas_dir=atlas_dir, device=cuda_device)
+    assert nifti.WRITES["in_order"] - writes["in_order"] == 3
+    assert nifti.WRITES["transposed"] - writes["transposed"] == 2
+    # the priors' 2,937,600 B in 45 chunks, each template's 195,840 B in 3,
+    # the mask's 34 slabs of 5,760 B in runs of 11
+    assert nifti.DEFLATED_CHUNKS - chunks == 45 + 2 * 3 + 4
+
+    tmp = tmp_path / "subj" / "tmp"
+    t1 = load_nii(scan)
+    atlas = load_nii(f"{atlas_dir}/{ATLAS_NAME}")
+    want = resample_through_cpp(
+        atlas.data, atlas.affine,
+        load_cpp_grid(str(tmp / "transform.nii"), t1.affine), t1.shape,
+        t1.affine, device=cuda_device)
+    priors = load_nii(str(tmp / "MNI_sub_probabilities.nii.gz")).data
+    assert priors.dtype == np.float32 and priors.shape == want.shape
+    assert priors.tobytes() == want.tobytes()
+    mask = load_nii(str(tmp / "MNI_subcortical_mask.nii.gz")).data
+    np.testing.assert_array_equal(mask, _roi_mask(priors, 13, 5))
+    assert mask.any()
+
+
 # the level kinds of register_masks: the affine's rigid and 12-dof phases,
 # the FFD under SSD and under NMI, the fold penalty on
 LEVEL_KINDS = [("affine", "nmi", 6), ("affine", "nmi", 12),

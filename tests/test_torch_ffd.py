@@ -23,10 +23,14 @@ from scipy import ndimage
 from subcort_tpu.io import load_nii as jax_load_nii
 from subcort_tpu.registration import jax_backend, jax_ffd
 from subcort_tpu_torch.io import NiftiImage, save_nii
+from subcort_tpu_torch.config import exact_float32
 from subcort_tpu_torch.registration import (load_cpp_grid,
+                                            resample_through_affine,
                                             resample_through_cpp, torch_ffd)
 from subcort_tpu_torch.registration.torch_backend import (WARMUP_ITERS,
                                                           CppGrid,
+                                                          _resample_affine,
+                                                          _resample_cpp,
                                                           downsample2,
                                                           linear_schedule,
                                                           spacing3)
@@ -401,6 +405,46 @@ def test_ffd_without_a_device_asks_for_the_card(warped_pair):
     with pytest.raises(RuntimeError, match="CUDA"):
         torch_ffd.jacobian_stats(CppGrid(np.zeros((5, 5, 5, 3), np.float32),
                                          4.0, np.eye(4)), (8, 8, 8))
+
+
+# ------------------------------------------------------ the resamplers' layout
+@pytest.mark.parametrize("channels", [0, 15], ids=["3d", "4d15"])
+@pytest.mark.parametrize("kind", ["cpp", "affine"])
+def test_resamplers_return_file_order(kind, channels):
+    """``resample_through_cpp`` and ``resample_through_affine`` hand back
+    the reference grid's (X, Y, Z[, C]) shape F-contiguous (NIfTI's byte
+    order), with values bit-equal to their device programs' tensors read
+    back as they are."""
+    rng = np.random.default_rng(5)
+    flo = rng.random((20, 18, 16) + ((channels,) if channels else ())
+                     ).astype(np.float32)
+    flo_affine = np.diag([1.1, 0.9, 1.2, 1.0])
+    ref_shape, ref_affine = (17, 19, 14), np.diag([1.0, 1.0, 1.3, 1.0])
+    flo_inv = np.linalg.inv(flo_affine)
+    if kind == "cpp":
+        spacing = (5.0, 5.0, 4.0)
+        disp = (rng.standard_normal(
+            torch_ffd._grid_counts(ref_shape, spacing) + (3,)) * 1.5
+                ).astype(np.float32)
+        got = resample_through_cpp(flo, flo_affine,
+                                   CppGrid(disp, spacing, ref_affine),
+                                   ref_shape, ref_affine, device="cpu")
+        program, args = _resample_cpp, (disp, spacing, flo_inv, ref_affine,
+                                        ref_shape)
+    else:
+        A = np.eye(4)
+        A[:3, :3] += rng.standard_normal((3, 3)) * 0.04
+        A[:3, 3] = [1.5, -1.0, 0.5]
+        got = resample_through_affine(flo, flo_affine, A, ref_shape,
+                                      ref_affine, device="cpu")
+        program, args = _resample_affine, (A, flo_inv, ref_affine, ref_shape)
+    with torch.no_grad(), exact_float32():
+        want = program(torch.from_numpy(flo), *args).numpy()
+    assert want.flags.c_contiguous
+    assert got.shape == want.shape == ref_shape + want.shape[3:]
+    assert got.dtype == np.float32 and got.flags.f_contiguous
+    assert float(np.abs(want).max()) > 0.1
+    assert got.tobytes() == want.tobytes()
 
 
 # ------------------------------------------------- the transform.nii contract

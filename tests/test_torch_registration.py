@@ -25,15 +25,17 @@ from subcort_tpu.registration import jax_affine, jax_backend, jax_ffd
 from subcort_tpu.registration import register_masks as jax_register_masks
 from subcort_tpu_torch.config import Options
 from subcort_tpu_torch.engine.data import _configured_register
-from subcort_tpu_torch.io import NiftiImage, load_nii, save_nii
+from subcort_tpu_torch.io import NiftiImage, load_nii, nifti, save_nii
 from subcort_tpu_torch.registration import (RegistrationError, atlas,
                                             load_cpp_grid,
                                             register_masks,
                                             resample_through_affine,
                                             resample_through_cpp,
                                             torch_affine, torch_backend)
-from subcort_tpu_torch.registration.driver import (DEFAULT_ATLAS_DIR,
-                                                   _resolve_atlas_dir)
+from subcort_tpu_torch.registration.driver import (ATLAS_NAME,
+                                                   DEFAULT_ATLAS_DIR,
+                                                   _resolve_atlas_dir,
+                                                   _roi_mask)
 from subcort_tpu_torch.registration.torch_backend import CppGrid
 from subcort_tpu_torch.utils import runtime
 
@@ -516,7 +518,9 @@ def test_register_masks_torch_backend(tmp_path):
     between the two). While spans record, the call is a
     ``register.masks`` span over its stages, whose spans (with their IO,
     mask and ``register.level`` children) sum to the call; a cached call
-    opens no stage."""
+    opens no stage. The priors and both templates are written in file
+    order, the priors are ``resample_through_cpp``'s output through the
+    call's own grid and the mask ``_roi_mask`` of them."""
     atlas_dir = str(tmp_path / "atlases")
     template, at = atlas.make_synthetic_atlas(atlas_dir, shape=(36, 40, 34))
     shift = (1.5, -1.0, 0.5)
@@ -527,11 +531,15 @@ def test_register_masks_torch_backend(tmp_path):
     jscan = _save(tmp_path / "jax", "T1.nii.gz", subject)
 
     runtime.clear_records()
+    writes = dict(nifti.WRITES)
     with runtime.recording():
         seconds = register_masks(scan, atlas_dir=atlas_dir, backend="torch",
                                  device="cpu",
                                  tools_dir=str(tmp_path / "no_tools_here"))
     recs = runtime.records()
+    # in order: the priors, both templates; transposed: the grid, the mask
+    assert {k: nifti.WRITES[k] - writes[k] for k in writes} == {
+        "in_order": 3, "transposed": 2}
     report = runtime.self_seconds(recs)
     stages = ["register.affine", "register.ffd", "register.io",
               "register.mask", "register.prior_warp"]
@@ -556,6 +564,14 @@ def test_register_masks_torch_backend(tmp_path):
     grid = load_cpp_grid(str(tmp / "transform.nii"), np.eye(4))
     np.testing.assert_allclose(torch_backend.spacing3(grid.spacing), 10.0,
                                rtol=1e-5)
+    at_img = load_nii(os.path.join(atlas_dir, ATLAS_NAME))
+    t1 = load_nii(scan)
+    assert probs.tobytes() == resample_through_cpp(
+        at_img.data, at_img.affine, grid, t1.shape, t1.affine,
+        device="cpu").tobytes()
+    np.testing.assert_array_equal(
+        load_nii(str(tmp / "MNI_subcortical_mask.nii.gz")).data,
+        _roi_mask(probs, 13, 5))
 
     # stage cache: a second call is a no-op
     runtime.clear_records()
