@@ -257,6 +257,20 @@ and the exit code is non-zero:
    reference's (benchmark/reference/fastsurfer.py): the slices bit-equal,
    the logits' argmax equal on >= 0.999 of the pixels and their median
    difference under 1e-5 of the logits' range;
+19. SynthSeg's whole-volume path (engine/synthseg.py) at the published
+   widths (a 3D U-Net of 5 levels, 24 to 384 filters, 33 classes) on the
+   phase-4 scan, with the benchmark's seeded weights
+   (benchmark/weights_synthseg.py, calibrated on that scan):
+   segment_synthseg warm and timed (two forwards, two filter launches a
+   scan); the program's flip-averaged posteriors against the plain
+   reference's (benchmark/reference/synthseg.py) under
+   benchmark/limits/scan_synthseg.json's posterior_gap, and the labels
+   against the reference's post-process of the program's posteriors under
+   its topology_mismatch; then the normal path: the scan written as NIfTI,
+   SegmentationEngine.segment_scan and cli infer on a SynthSeg state dict
+   (.pt), each writing out_subcortical_seg_prec.nii.gz of the input's
+   shape, equal to the timed call's labels. Alone:
+   python3 -c 'import chip_smoke as c; c.synthseg_alone()';
 13. printed last: one JSON line of kernel facts (with dp_* keys: the
    two-device patch launches, launches per rank, the backends; bench_*
    keys: each benchmark's launches, steps + eval batches and seconds;
@@ -2756,6 +2770,112 @@ def views_phase(torch, device, image) -> dict:
     return out
 
 
+def synthseg_phase(torch, device, image) -> dict:
+    """Phase 19: SynthSeg's whole-volume path at the published widths
+    (see the module docstring)."""
+    import tempfile
+
+    from benchmark import weights_synthseg
+    from benchmark.reference import synthseg as ref
+    from subcort_tpu_torch import Options, SegmentationEngine, load_nii
+    from subcort_tpu_torch.engine import synthseg
+    from subcort_tpu_torch.io import NiftiImage, save_nii
+    from subcort_tpu_torch.models.synthseg import SynthSegUNet
+    from subcort_tpu_torch.ops import connected
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "benchmark"
+    cfg = json.loads((root / "configs" / "synthseg_unet.json").read_text())
+    limits = json.loads((root / "limits" / "scan_synthseg.json").read_text())
+    params = weights_synthseg.make_weights(cfg, 19, device)
+    weights_synthseg.calibrate(params, image, device)
+    net = SynthSegUNet.from_params(params, device)
+    synthseg.segment_synthseg(net, image, (1, 1, 1), device)
+    forwards, launches = synthseg.FORWARDS, connected.FILTER_LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels = synthseg.segment_synthseg(net, image, (1, 1, 1), device)
+    seconds = time.perf_counter() - t0
+    forwards = synthseg.FORWARDS - forwards
+    launches = connected.FILTER_LAUNCHES - launches
+    check(labels.shape == image.shape and labels.dtype == np.uint8
+          and labels.max() <= 14, f"segment_synthseg labels {labels.shape}")
+    check(forwards == 2 and launches == 2,
+          f"segment_synthseg ran {forwards} forwards, {launches} filter "
+          "launches (want 2 and 2)")
+    prob, offsets = synthseg.flip_averaged_posteriors(net, image, (1, 1, 1),
+                                                      device)
+    want, want_offsets = ref.posteriors(params, image, cfg["labels"],
+                                        cfg["lr_pairs"], device)
+    check(tuple(offsets) == tuple(want_offsets), f"offsets {offsets}")
+    gap = ref.posterior_gap(want, prob.argmax(0))
+    err = float((prob - want).abs().max())
+    del want
+    post = ref.crop_labels(ref.postprocess(prob.cpu().numpy(),
+                                           cfg["topology_classes"]),
+                           offsets, image.shape, cfg["structure_of"])
+    del prob
+    mismatch = int(np.count_nonzero(post != labels))
+    present = np.unique(labels)
+    print(f"segment_synthseg at the published widths: {seconds:.3f} s a "
+          f"scan, {len(present)} classes present ({present.tolist()}); "
+          f"posterior gap {gap:.3e} (limit "
+          f"{limits['posterior_gap']['limit']}), largest |P - P_ref| "
+          f"{err:.3e} (limit {limits['posterior_error']['limit']}), "
+          f"topology mismatch {mismatch} (limit "
+          f"{limits['topology_mismatch']['limit']})")
+    check(gap <= limits["posterior_gap"]["limit"],
+          f"posterior gap {gap} over its limit")
+    check(err <= limits["posterior_error"]["limit"],
+          f"largest |P - P_ref| {err} over its limit")
+    check(mismatch <= limits["topology_mismatch"]["limit"],
+          f"topology mismatch {mismatch} over its limit")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        sub = work / "scans" / "s00"
+        sub.mkdir(parents=True)
+        save_nii(NiftiImage(image, np.eye(4)), str(sub / "T1.nii.gz"))
+        host = {k: v.cpu() for k, v in params.items()}
+        engine = SegmentationEngine(host, Options(
+            mode="cuda0", test_folder=str(work / "scans"), net_verbose=0))
+        engine.segment_scan(str(sub / "T1.nii.gz"))
+        out = sub / "out_subcortical_seg_prec.nii.gz"
+        via_engine = load_nii(str(out)).data
+        out.unlink()
+        (work / "w" / "ss").mkdir(parents=True)
+        torch.save(host, str(work / "w" / "ss" / "ss.pt"))
+        cfg_path = work / "configuration.cfg"
+        cfg_path.write_text(
+            f"[database]\ninference_folder = {work / 'scans'}\n"
+            "t1_name = T1.nii.gz\n\n[model]\nname = ss\nmode = cuda0\n"
+            "net_verbose = 0\n")
+        run_cli("infer", "--config", str(cfg_path), "--weights-path",
+                str(work / "w"))
+        via_cli = load_nii(str(out)).data
+    for name, got in (("segment_scan", via_engine), ("cli infer", via_cli)):
+        check(got.shape == image.shape and np.array_equal(got, labels),
+              f"{name} wrote {got.shape}, equal to the timed labels: "
+              f"{np.array_equal(got, labels)}")
+    out = {"synthseg_s": seconds, "synthseg_posterior_gap": gap,
+           "synthseg_topology_mismatch": mismatch,
+           "synthseg_phase_s": time.perf_counter() - t_phase}
+    print(f"phase 19: {out['synthseg_phase_s']:.3f} s")
+    return out
+
+
+def synthseg_alone() -> dict:
+    """Phase 19 by itself, on an MNI-sized scan of ``frozen.make_scan``."""
+    import torch
+
+    from benchmark import frozen
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    image = frozen.make_scan(np.random.default_rng(19))[0]
+    return synthseg_phase(torch, torch.device("cuda", 0), image)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3132,6 +3252,9 @@ def main() -> None:
 
     # 18. FastSurferCNN's multi-view path
     bench.update(views_phase(torch, device, image))
+
+    # 19. SynthSeg's whole-volume path
+    bench.update(synthseg_phase(torch, device, image))
 
     # 13. results
     print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all")

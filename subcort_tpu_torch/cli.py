@@ -110,15 +110,16 @@ def _evaluate(options) -> None:
 
 def _load_weights(weights_path: str, experiment: str, load_theano):
     """The experiment's weights: ``<experiment>.pkl`` (the tri-planar
-    network, Theano format), else ``<experiment>.pt``, FastSurfer state
-    dicts saved by ``torch.save({"axial": ..., "coronal": ...,
-    "sagittal": ...})``, which the engine runs by the multi-view path."""
+    network, Theano format), else ``<experiment>.pt``, a state dict saved
+    by ``torch.save``: FastSurfer's, one a view (``{"axial": ...,
+    "coronal": ..., "sagittal": ...}``), which the engine runs by the
+    multi-view path, or SynthSeg's, which it runs by SynthSeg's path."""
     stem = os.path.join(weights_path, experiment, experiment)
     if os.path.exists(stem + ".pkl") or not os.path.exists(stem + ".pt"):
         print("--> loading weights from", stem + ".pkl")
         return load_theano(stem + ".pkl")
     import torch
-    print("--> loading FastSurfer weights from", stem + ".pt")
+    print("--> loading state dicts from", stem + ".pt")
     return torch.load(stem + ".pt", map_location="cpu", weights_only=True)
 
 

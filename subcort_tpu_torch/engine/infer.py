@@ -55,14 +55,21 @@ steps by default, ``probs_dtype = float32`` for exact ones),
 ``out_subcortical_seg_prec.nii.gz`` (post-processed) or
 ``out_subcortical_rawseg.nii.gz``, each with the input's affine.
 
-**FastSurferCNN.** ``SegmentationEngine`` handed FastSurfer state dicts
-(``{"axial": ..., "coronal": ..., "sagittal": ...}``) holds the three view
-networks (:class:`~subcort_tpu_torch.models.fastsurfer.FastSurferViews`),
-and ``test_scan`` and ``segment_folder`` then run the multi-view path
-(:func:`~subcort_tpu_torch.engine.views.segment_views`): no atlas,
-registration, candidates or priors; ``post_process`` keeps each class's
-largest component (a whole-volume mask). The network decides the path:
-the options this path cannot run (``out_probabilities``,
+**Whole-volume networks.** The weights decide the path, once
+(:data:`KINDS`, one :class:`NetworkKind` a kind of network: its net, its
+option check, its host prep and its scan). ``SegmentationEngine`` handed
+FastSurfer state dicts (``{"axial": ..., "coronal": ..., "sagittal":
+...}``) holds the three view networks
+(:class:`~subcort_tpu_torch.models.fastsurfer.FastSurferViews`), and
+``test_scan`` and ``segment_folder`` run the multi-view path
+(:func:`~subcort_tpu_torch.engine.views.segment_views`), ``post_process``
+keeping each class's largest component (a whole-volume mask). Handed a
+SynthSeg state dict it holds SynthSeg's 3D U-Net
+(:class:`~subcort_tpu_torch.models.synthseg.SynthSegUNet`) and runs
+:func:`~subcort_tpu_torch.engine.synthseg.segment_synthseg`, whose own
+topology post-process on the card takes the place of the label filter
+with ``post_process``. Neither takes an atlas, registration, candidates
+or priors; the options they cannot run (``out_probabilities``,
 ``data_parallel > 1``, a ``compute_dtype`` other than float32,
 ``bugcompat_postprocess_argmax``) raise a :class:`ValueError`.
 """
@@ -75,7 +82,7 @@ import os
 import time
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -86,11 +93,13 @@ from subcort_tpu_torch.engine.data import _configured_register
 from subcort_tpu_torch.engine.forward import forward_centers
 from subcort_tpu_torch.engine.metrics import ScanStats
 from subcort_tpu_torch.engine.postprocess import post_process_segmentation
+from subcort_tpu_torch.engine.synthseg import segment_synthseg
 from subcort_tpu_torch.engine.views import segment_views, zooms_of
 from subcort_tpu_torch.io import NiftiImage, load_nii, save_nii
 from subcort_tpu_torch.models.fastsurfer import (FastSurferViews,
                                                  is_view_params)
 from subcort_tpu_torch.models.fcn import HALF, RF, fcn_forward_slab
+from subcort_tpu_torch.models.synthseg import SynthSegUNet, is_synthseg_params
 from subcort_tpu_torch.models.triplanar import (DEFAULT_SPEC, Params,
                                                 TriPlanarNet, TriPlanarSpec,
                                                 predict_proba_chunked)
@@ -116,20 +125,19 @@ def check_slice_options(options: Options) -> None:
     check_registration(options["reg_backend"], options["reg_similarity"])
 
 
-def check_views_options(options: Options) -> None:
-    """Raise ``ValueError`` for an option the multi-view path cannot run."""
+def check_volume_options(options: Options, path: str) -> None:
+    """Raise ``ValueError`` for an option a whole-volume path (``path``
+    names it) cannot run."""
     if options.bool("out_probabilities"):
-        raise ValueError("out_probabilities: the multi-view path writes "
-                         "labels only")
+        raise ValueError(f"out_probabilities: {path} writes labels only")
     if int(options["data_parallel"]) > 1:
-        raise ValueError("data_parallel > 1: the multi-view path runs on "
-                         "one device")
+        raise ValueError(f"data_parallel > 1: {path} runs on one device")
     if options["compute_dtype"] != "float32":
-        raise ValueError(f"compute_dtype {options['compute_dtype']!r}: the "
-                         "multi-view path runs in float32")
+        raise ValueError(f"compute_dtype {options['compute_dtype']!r}: "
+                         f"{path} runs in float32")
     if options.bool("bugcompat_postprocess_argmax"):
-        raise ValueError("bugcompat_postprocess_argmax: the multi-view path "
-                         "has no atlas mask to score components against")
+        raise ValueError(f"bugcompat_postprocess_argmax: {path} has no "
+                         "atlas mask to score components against")
 
 
 def net_in_dtype(net: TriPlanarNet, compute_dtype: str) -> TriPlanarNet:
@@ -772,45 +780,58 @@ def test_scan(net: TriPlanarNet, scan_path: str, options: Options,
     ``infer.segment_volume`` and ``infer.write`` under it; the pipelined
     sweep's load and write run on their threads under the same request.
     """
-    if isinstance(net, FastSurferViews):
-        check_views_options(options)
-        with span("infer.scan", _subject(scan_path)):
-            return _test_scan_views(net, scan_path, options, device,
-                                    _inputs, _writer)
-    check_slice_options(options)
+    kind = kind_of_net(net)
+    kind.check(options)
     with span("infer.scan", _subject(scan_path)):
-        return _test_scan(net, scan_path, options, register_fn, device,
-                          devices, _inputs, _writer)
+        return kind.scan(net, scan_path, options, register_fn, device,
+                         devices, _inputs, _writer)
 
 
-def _load_views_inputs(scan_path: str, request=None):
-    """The multi-view path's host prep: the T1 (``infer.load``)."""
+def _deliver(write_outputs, s_time: float, stats: ScanStats,
+             _writer) -> float:
+    """Run a scan's ``write_outputs`` now, or queue it on ``_writer``;
+    the scan's minutes (without the deferred writes)."""
+    if _writer is None:
+        write_outputs()
+        return (time.time() - s_time) / 60.0
+    # pin wall_seconds and the minutes now: emit() runs later on the
+    # writer thread, and submit() may block on an older scan's write
+    stats.stop()
+    elapsed = time.time() - s_time
+    _writer.submit(write_outputs)
+    return elapsed / 60.0
+
+
+def _load_volume_inputs(scan_path: str, options: Options = None,
+                        register_fn=None, device=None, request=None):
+    """A whole-volume path's host prep: the T1 (``infer.load``)."""
     with span("infer.load", request):
         t1 = load_nii(scan_path)
         return t1, np.asarray(t1.data)
 
 
-def _test_scan_views(nets, scan_path, options, device, _inputs,
-                     _writer) -> float:
-    """:func:`test_scan` by the three view networks, inside its span."""
+def _test_scan_volume(segment, finish, net, scan_path, options, register_fn,
+                      device, devices, _inputs, _writer) -> float:
+    """:func:`test_scan` by a whole-volume network, inside its span: the
+    labels of ``segment(net, image, zooms, options, device)``, and, with
+    ``post_process``, ``finish(labels, options, device)`` (None: the
+    labels as they are) written on the writer's side."""
     s_time = time.time()
     image_dir, _ = os.path.split(scan_path)
     t1, image = (_inputs if _inputs is not None
-                 else _load_views_inputs(scan_path))
+                 else _load_volume_inputs(scan_path))
     stats = ScanStats(scan_path).set(volume_shape=list(image.shape))
-    labels = segment_views(nets, image, zooms_of(t1.affine), device=device)
+    on = device if device is not None else next(net.parameters()).device
+    labels = segment(net, image, zooms_of(t1.affine), options, on)
     affine = t1.affine
-    cc_device = (device if device is not None
-                 else next(nets.parameters()).device)
     subject = _subject(scan_path)
 
     def write_outputs():
         with span("infer.write", subject):
             if options.bool("post_process"):
-                filtered = post_process_segmentation(
-                    image_dir, labels, atlas_mask=np.ones(labels.shape, bool),
-                    cc_backend=options["cc_backend"], device=cc_device)
-                save_nii(NiftiImage(filtered, affine),
+                out = labels if finish is None else finish(labels, options,
+                                                           on)
+                save_nii(NiftiImage(out, affine),
                          os.path.join(image_dir,
                                       "out_subcortical_seg_prec.nii.gz"))
             else:
@@ -820,13 +841,22 @@ def _test_scan_views(nets, scan_path, options, device, _inputs,
             if options["net_verbose"]:
                 stats.emit()
 
-    if _writer is None:
-        write_outputs()
-        return (time.time() - s_time) / 60.0
-    stats.stop()
-    elapsed = time.time() - s_time
-    _writer.submit(write_outputs)
-    return elapsed / 60.0
+    return _deliver(write_outputs, s_time, stats, _writer)
+
+
+def _views_labels(nets, image, zooms, options, device):
+    return segment_views(nets, image, zooms, device=device)
+
+
+def _views_finish(labels, options, device):
+    return post_process_segmentation(
+        None, labels, atlas_mask=np.ones(labels.shape, bool),
+        cc_backend=options["cc_backend"], device=device)
+
+
+def _synthseg_labels(net, image, zooms, options, device):
+    return segment_synthseg(net, image, zooms, device=device,
+                            post_process=options.bool("post_process"))
 
 
 def _test_scan(net, scan_path, options, register_fn, device, devices,
@@ -884,19 +914,74 @@ def _test_scan(net, scan_path, options, register_fn, device, devices,
                 # one JSON line: wall_seconds, voxels_per_sec, ...
                 stats.emit()
 
-    if _writer is None:
-        write_outputs()
-        return (time.time() - s_time) / 60.0
-    # pin wall_seconds and the minutes now: emit() runs later on the
-    # writer thread, and submit() may block on an older scan's write
-    stats.stop()
-    elapsed = time.time() - s_time
-    _writer.submit(write_outputs)
-    return elapsed / 60.0
+    return _deliver(write_outputs, s_time, stats, _writer)
 
 
 # keep the reference's public name without pytest collecting it as a test
 test_scan.__test__ = False
+
+
+class NetworkKind(NamedTuple):
+    """One kind of network the engine runs, chosen once from its weights
+    or its net: ``net_type``; ``owns(params)``, whether weights are its;
+    ``build(params, options, spec, device)``, its net; ``check(options)``,
+    which raises for an option its path cannot run; ``load(scan_path,
+    options, register_fn, device, request)``, a scan's host prep (what
+    ``test_scan`` takes as ``_inputs``); ``scan(net, scan_path, options,
+    register_fn, device, devices, _inputs, _writer)``, the body of
+    :func:`test_scan`; ``patches``, whether it takes patch batches and
+    candidates (``predict_proba``, data parallelism, registration)."""
+    name: str
+    net_type: type
+    owns: Callable
+    build: Callable
+    check: Callable
+    load: Callable
+    scan: Callable
+    patches: bool
+
+
+def _build_triplanar(params, options, spec, device):
+    return net_in_dtype(TriPlanarNet.from_params(params, spec, device),
+                        options["compute_dtype"])
+
+
+def _load_triplanar(*args):
+    # through the module's name at each call, which tests replace
+    return _load_scan_inputs(*args)
+
+
+TRIPLANAR = NetworkKind(
+    "tri-planar", TriPlanarNet, lambda params: True, _build_triplanar,
+    check_slice_options, _load_triplanar, _test_scan, True)
+VIEWS = NetworkKind(
+    "FastSurferCNN", FastSurferViews, is_view_params,
+    lambda params, options, spec, device: FastSurferViews.from_params(
+        params, device),
+    functools.partial(check_volume_options, path="the multi-view path"),
+    _load_volume_inputs,
+    functools.partial(_test_scan_volume, _views_labels, _views_finish),
+    False)
+SYNTHSEG = NetworkKind(
+    "SynthSeg", SynthSegUNet, is_synthseg_params,
+    lambda params, options, spec, device: SynthSegUNet.from_params(
+        params, device),
+    functools.partial(check_volume_options, path="SynthSeg's path"),
+    _load_volume_inputs,
+    functools.partial(_test_scan_volume, _synthseg_labels, None), False)
+# the first whose ``owns`` (or net type) fits; the tri-planar net last
+KINDS = (VIEWS, SYNTHSEG, TRIPLANAR)
+
+
+def kind_of_params(params) -> NetworkKind:
+    """The kind whose weights ``params`` are."""
+    return next(k for k in KINDS if k.owns(params))
+
+
+def kind_of_net(net) -> NetworkKind:
+    """The kind of ``net`` (any other net is taken as tri-planar)."""
+    return next((k for k in KINDS if isinstance(net, k.net_type)),
+                TRIPLANAR)
 
 
 class SegmentationEngine:
@@ -905,9 +990,10 @@ class SegmentationEngine:
 
     ``params`` is a state dict (:func:`~subcort_tpu_torch.models.init_params`,
     :func:`~subcort_tpu_torch.models.load_theano_checkpoint` or
-    :func:`~subcort_tpu_torch.models.params_from_jax`), or FastSurfer
+    :func:`~subcort_tpu_torch.models.params_from_jax`), FastSurfer
     state dicts, one a view (``{"axial": ..., "coronal": ...,
-    "sagittal": ...}``), for the multi-view path; the device comes
+    "sagittal": ...}``), for the multi-view path, or a SynthSeg state
+    dict for SynthSeg's path (:data:`KINDS`); the device comes
     from ``options.mode`` (:func:`~subcort_tpu_torch.config.select_device`),
     and the net is held in ``options.compute_dtype``. ``[tpu]
     data_parallel > 1`` segments every scan over ``devices``
@@ -918,16 +1004,11 @@ class SegmentationEngine:
                  spec: TriPlanarSpec = DEFAULT_SPEC, register_fn=None):
         self.options = options
         self.device = select_device(options)
-        if is_view_params(params):
-            check_views_options(options)
-            self.devices = None
-            self.net = FastSurferViews.from_params(params, self.device)
-        else:
-            check_slice_options(options)
-            self.devices = _data_parallel_devices(options)
-            self.net = net_in_dtype(
-                TriPlanarNet.from_params(params, spec, self.device),
-                options["compute_dtype"])
+        self.kind = kind_of_params(params)
+        self.kind.check(options)
+        self.devices = (_data_parallel_devices(options)
+                        if self.kind.patches else None)
+        self.net = self.kind.build(params, options, spec, self.device)
         self.register_fn = register_fn
         self._load_stream = None
 
@@ -941,9 +1022,10 @@ class SegmentationEngine:
         nolearn): softmax probabilities of a pre-extracted patch batch (the
         reference's ``in1..in4`` keys or axial/coronal/sagittal/atlas), in
         memory-bounded chunks."""
-        if isinstance(self.net, FastSurferViews):
-            raise ValueError("predict_proba takes tri-planar patch batches; "
-                             "the FastSurfer views segment whole scans")
+        if not self.kind.patches:
+            raise ValueError(f"predict_proba takes tri-planar patch batches; "
+                             f"the {self.kind.name} net segments whole "
+                             f"scans")
         return predict_proba_chunked(self.net, batch).float().cpu().numpy()
 
     def predict(self, batch) -> np.ndarray:
@@ -958,17 +1040,15 @@ class SegmentationEngine:
         returned, and no tensor crosses threads. (One stream for every
         load: the caching allocator reuses a stream's freed blocks only on
         that stream.)"""
-        if isinstance(self.net, FastSurferViews):
-            return _load_views_inputs(path, _subject(path))
         args = (path, self.options, self.register_fn, self.device,
                 _subject(path))
-        if self.device.type != "cuda":
-            return _load_scan_inputs(*args)
+        if self.device.type != "cuda" or not self.kind.patches:
+            return self.kind.load(*args)
         if self._load_stream is None:
             self._load_stream = torch.cuda.Stream(self.device)
         stream = self._load_stream
         with torch.cuda.stream(stream):
-            out = _load_scan_inputs(*args)
+            out = self.kind.load(*args)
         stream.synchronize()
         return out
 

@@ -99,20 +99,21 @@ def _add_slices(n: int) -> None:
         SLICES += n
 
 
-def check_conformable(shape, zooms, size: int = SIZE) -> None:
+def check_conformable(shape, zooms, size: int = SIZE,
+                      path: str = "the multi-view path") -> None:
     """Raise ``ValueError`` unless a volume of ``shape`` and voxel sizes
-    ``zooms`` (mm) is 3D, 1 mm isotropic and at most ``size`` a side."""
+    ``zooms`` (mm) is 3D, 1 mm isotropic and at most ``size`` a side;
+    ``path`` names the caller in the message."""
     shape = tuple(int(s) for s in shape)
     if len(shape) != 3:
-        raise ValueError(f"the multi-view path takes a 3D scan, got shape "
-                         f"{shape}")
+        raise ValueError(f"{path} takes a 3D scan, got shape {shape}")
     z = np.asarray(zooms, np.float64).reshape(-1)[:3]
     if z.size != 3 or np.abs(z - 1.0).max() > ZOOM_TOLERANCE:
-        raise ValueError(f"the multi-view path takes 1 mm isotropic voxels "
-                         f"(no resampling), got {tuple(z)}")
+        raise ValueError(f"{path} takes 1 mm isotropic voxels (no "
+                         f"resampling), got {tuple(z)}")
     if max(shape) > size:
-        raise ValueError(f"the multi-view path takes at most {size} voxels "
-                         f"a side (no resampling), got {shape}")
+        raise ValueError(f"{path} takes at most {size} voxels a side (no "
+                         f"resampling), got {shape}")
 
 
 def zooms_of(affine: np.ndarray) -> np.ndarray:
@@ -120,17 +121,29 @@ def zooms_of(affine: np.ndarray) -> np.ndarray:
     return np.sqrt((np.asarray(affine, np.float64)[:3, :3] ** 2).sum(0))
 
 
+def order_statistics(flat_sorted: torch.Tensor, quantiles) -> list:
+    """For each quantile ``q`` of an ascending flat volume, ``(a, b, t)``
+    in float64: the order statistics at ranks ``floor(q (n - 1))`` and the
+    next (the last where there is none) and the fraction ``t`` of the rank
+    between them; one read-back of them all."""
+    n = flat_sorted.numel()
+    ranks, fractions = [], []
+    for q in quantiles:
+        pos = q * (n - 1)
+        k = int(np.floor(pos))
+        ranks += [k, min(k + 1, n - 1)]
+        fractions.append(pos - k)
+    picks = [float(v) for v in flat_sorted[torch.tensor(
+        ranks, device=flat_sorted.device)].double().cpu()]
+    return [(picks[2 * i], picks[2 * i + 1], t)
+            for i, t in enumerate(fractions)]
+
+
 def conform_range(flat_sorted: torch.Tensor) -> tuple:
     """(lo, hi) in float64 of an ascending flat volume: its minimum and the
     0.999 quantile, ``a + (b - a) t`` between the order statistics around
-    rank ``0.999 (n - 1)`` (one read-back of three numbers)."""
-    n = flat_sorted.numel()
-    pos = QUANTILE * (n - 1)
-    k = int(np.floor(pos))
-    t = pos - k
-    picks = flat_sorted[torch.tensor([0, k, min(k + 1, n - 1)],
-                                     device=flat_sorted.device)]
-    lo, a, b = (float(v) for v in picks.double().cpu())
+    rank ``0.999 (n - 1)`` (one read-back)."""
+    (lo, _, _), (a, b, t) = order_statistics(flat_sorted, (0.0, QUANTILE))
     return lo, a + (b - a) * t
 
 

@@ -18,8 +18,11 @@ fails, from tests/test_torch_rank_multistep.py), and the
 headline benchmark's ``run`` on the card against the CPU (its phantom from
 tests/test_torch_bench_scan.py), and FastSurferCNN's multi-view path on the
 card against the CPU at a small spec and one full-width batch of 16 slices
-against the plain reference (``benchmark/reference/fastsurfer.py``); each
-skips without a CUDA device.
+against the plain reference (``benchmark/reference/fastsurfer.py``), and
+SynthSeg's whole-volume path at a small spec against its plain reference
+(``benchmark/reference/synthseg.py``) on the card, with its component step
+(the filter kernel) against the plain version; each skips without a CUDA
+device.
 
 This file imports no jax and uses no conftest fixture, so it runs on a
 machine that has torch and no jax:
@@ -1539,6 +1542,83 @@ def test_views_full_width_batch_matches_reference(cuda_device):
     assert agree >= 0.999
     assert float((got - logits).abs().median()
                  / logits.abs().max()) < 1e-5
+
+
+def _synthseg_setup(device, feat, shape):
+    """SynthSeg's net at ``feat`` base filters with the benchmark's seeded
+    weights calibrated on a scan of ``shape`` (``frozen.make_scan``)."""
+    import json
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from benchmark import frozen, weights_synthseg
+    cfg = dict(json.loads((root / "benchmark/configs/synthseg_unet.json")
+                          .read_text()), unet_feat_count=feat)
+    image = frozen.make_scan(np.random.default_rng(43), shape)[0]
+    params = weights_synthseg.make_weights(cfg, 43, device)
+    weights_synthseg.calibrate(params, image, device)
+    return cfg, params, image
+
+
+@pytest.mark.cuda
+def test_synthseg_card_matches_reference(cuda_device):
+    """SynthSeg's path at 8 base filters on a 60 x 70 x 58 scan (padded to
+    64 x 96 x 64) on the card: the flip-averaged P within 1e-5 of the
+    plain reference's on the card (TF32's lies further off); the labels
+    equal the reference's post-process of the program's own P but at a
+    thousandth of the voxels (a class sum crossing 0.25 in another
+    order); two forwards and two filter launches a scan."""
+    from benchmark.reference import synthseg as ref
+    from subcort_tpu_torch.engine import synthseg
+    from subcort_tpu_torch.models.synthseg import SynthSegUNet
+    from subcort_tpu_torch.ops import connected
+
+    cfg, params, image = _synthseg_setup(cuda_device, 8, (60, 70, 58))
+    net = SynthSegUNet.from_params(params, cuda_device)
+    prob, offsets = synthseg.flip_averaged_posteriors(net, image, (1, 1, 1),
+                                                      cuda_device)
+    want, want_offsets = ref.posteriors(params, image, cfg["labels"],
+                                        cfg["lr_pairs"], cuda_device)
+    assert prob.shape == (33, 64, 96, 64) and offsets == want_offsets
+    assert float((prob - want).abs().max()) <= 1e-5
+    low, _ = ref.posteriors(params, image, cfg["labels"], cfg["lr_pairs"],
+                            cuda_device, "tf32")
+    assert float((low - want).abs().max()) > 1e-4
+    forwards, launches = synthseg.FORWARDS, connected.FILTER_LAUNCHES
+    labels = synthseg.segment_synthseg(net, image, (1, 1, 1), cuda_device)
+    assert synthseg.FORWARDS - forwards == 2
+    assert connected.FILTER_LAUNCHES - launches == 2
+    post = ref.crop_labels(ref.postprocess(prob.cpu().numpy(),
+                                           cfg["topology_classes"]),
+                           offsets, image.shape, cfg["structure_of"])
+    assert labels.shape == image.shape
+    assert float((labels != post).mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_synthseg_component_step_kernel_matches_plain(cuda_device):
+    """``keep_largest`` on the card (the filter kernel, two launches)
+    against its plain version on the CPU, bit for bit, on blobby planted
+    posteriors in 1/64 steps (so every class sum is exact in any order)."""
+    from subcort_tpu_torch.engine import synthseg
+    from subcort_tpu_torch.ops import connected
+
+    g = torch.Generator().manual_seed(5)
+    logits = torch.nn.functional.avg_pool3d(
+        torch.randn((33, 48, 56, 40), generator=g)[None], 5, 1, 2)[0] * 8
+    prob = torch.floor(torch.softmax(logits, 0) * 64) / 64
+    prob[0] += 1 - prob.sum(0)
+    card = prob.to(cuda_device)
+    launches = connected.FILTER_LAUNCHES
+    assert synthseg.keep_largest(card) == 2
+    assert connected.FILTER_LAUNCHES - launches == 2
+    plain = prob.clone()
+    synthseg.keep_largest(plain)
+    assert torch.equal(card.cpu(), plain)
+    assert not torch.equal(plain, prob)
 
 
 @pytest.mark.cuda

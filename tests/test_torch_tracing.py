@@ -437,6 +437,49 @@ def test_views_spans_nest_under_one_request():
     assert records() == [] and views.SLICES - before == 6 * 32
 
 
+SYNTHSEG_STAGES = ["synthseg.upload", "synthseg.normalize",
+                   "synthseg.forward", "synthseg.forward",
+                   "synthseg.posteriors", "synthseg.topology",
+                   "synthseg.labels", "synthseg.readback"]
+
+
+def test_synthseg_spans_nest_under_one_request():
+    """``segment_synthseg`` gives one ``synthseg.segment`` root with its
+    stages as children, in order (a ``synthseg.forward`` a pass, the
+    unflipped first), their attributes, and ``FORWARDS`` counts the
+    forwards."""
+    from subcort_tpu_torch.engine import synthseg
+    from subcort_tpu_torch.models.synthseg import (SynthSegSpec,
+                                                   SynthSegUNet)
+    from subcort_tpu_torch.models.synthseg import init_params as ss_init
+    spec = SynthSegSpec(base_filters=2, num_classes=3)
+    net = SynthSegUNet.from_params(
+        ss_init(spec, torch.Generator().manual_seed(3)), "cpu")
+    image = _view_scan()
+    before = synthseg.FORWARDS
+    with recording():
+        labels = synthseg.segment_synthseg(net, image, (1, 1, 1), "cpu",
+                                           (0, 10, 49))
+    recs = sorted(records(), key=lambda r: r.start_ns)
+    root = _check_tree(recs, "synthseg.segment")
+    assert all(r.parent == root.id for r in recs if r is not root)
+    assert [r.name for r in recs][1:] == SYNTHSEG_STAGES
+    by = {}
+    for r in recs:
+        by.setdefault(r.name, []).append(r)
+    assert [r.attrs["flipped"] for r in by["synthseg.forward"]] == [0, 1]
+    assert all(r.attrs["voxels"] == 32 ** 3 for r in by["synthseg.forward"])
+    assert by["synthseg.upload"][0].attrs["bytes"] == image.nbytes
+    assert by["synthseg.normalize"][0].attrs["voxels"] == image.size
+    assert by["synthseg.topology"][0].attrs == {"classes": 2, "launches": 2}
+    assert by["synthseg.readback"][0].attrs["bytes"] == labels.nbytes
+    assert synthseg.FORWARDS - before == 2
+    # off, nothing records and the counter still counts
+    runtime.clear_records()
+    synthseg.segment_synthseg(net, image, (1, 1, 1), "cpu", (0, 10, 49))
+    assert records() == [] and synthseg.FORWARDS - before == 4
+
+
 def test_views_test_scan_under_its_subject(tmp_path, monkeypatch):
     """``test_scan`` by the view networks: ``infer.scan`` of the subject
     with ``infer.load``, ``views.segment`` and ``infer.write`` (the
