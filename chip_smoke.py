@@ -168,7 +168,12 @@ and the exit code is non-zero:
        a float scan and the patch engine still take; and segment_volume
        at full width on the int16 scan (two input launches a call) and on
        its float32 copy (statistics and bbox on the host, one launch a
-       call), equal labels; median seconds and self ms by stage);
+       call), equal labels; median seconds and self ms by stage); then
+       the BN + PReLU kernel's table (bn_prelu_table) at scan_patch's
+       conv1 and scan_dense's largest slab layer: equal to its plain
+       version in float32 and bfloat16, its device ms (CUDA events, 50
+       calls) beside its host enqueue ms, the plain four passes' ms, its
+       bound and its share;
    (d) one float32 train step at patch 40 (dropout 0) on the phase-11
        stack, every subject's 8 corner centers in the batch of 128: finite,
        no gather launch, loss and BN EMA card vs CPU within 1e-5;
@@ -1675,6 +1680,97 @@ def scan_inputs_table(torch, device, smi, seed: int = 0) -> dict:
     return out
 
 
+def bn_prelu_table(torch, device, smi) -> dict:
+    """Phase 14(c)'s table of the BN + PReLU kernel (ops/bn_prelu.py) at
+    scan_patch's conv1 (a chunk of 8,192: 8,192 x 20 x 30 x 30) and at
+    scan_dense's largest dense-slab layer (the coronal conv3 at the bbox
+    80 x 96 x 80: 96 x 40 x 102 x 102): bit-equal to its plain version,
+    in float32 and in bfloat16, its float32 device ms by CUDA events over
+    50 calls beside its host enqueue ms, the plain four passes' ms, the
+    bound (a 4-byte read and a 4-byte write a value over 3.35 TB/s) and
+    the kernel's share of it; then the launches of one segment_volume call
+    on scan_dense's scan (204,403 candidates) at full width, by the
+    counter and by the ``bn_prelu`` attributes of its ``infer.forward``
+    spans: 15 a chunk of 8,192 in the patch engine (375), 15 a slab in the
+    dense one. Returns its numbers."""
+    import copy
+
+    import torch.nn.functional as F
+    from scipy import ndimage
+
+    from subcort_tpu_torch.bench.scan import make_scan
+    from subcort_tpu_torch.engine import infer
+    from subcort_tpu_torch.models import TriPlanarNet, init_params
+    from subcort_tpu_torch.models.triplanar import DEFAULT_SPEC, _BatchNorm
+    from subcort_tpu_torch.ops import bn_prelu
+    from subcort_tpu_torch.utils import runtime
+    from subcort_tpu_torch.utils.build import build_library
+
+    build_library("bn_prelu", [bn_prelu.SOURCE], verbose=True)
+    layers = {"scan_patch conv1": (8192, 20, 30, 30),
+              "scan_dense coronal conv3": (96, 40, 102, 102)}
+    print(f"{smi}: the BN + PReLU kernel")
+    print("| layer | shape | kernel ms (events, 50) | host enqueue ms | "
+          "plain, 4 passes, ms (events, 50) | bound ms | share of the "
+          "bound |\n|---|---|---|---|---|---|---|")
+    out = {}
+    for name, shape in layers.items():
+        g = torch.Generator().manual_seed(0)
+        c = shape[1]
+        bn = _BatchNorm(c, 1e-4)
+        with torch.no_grad():
+            for t in (bn.mean, bn.gamma, bn.beta):
+                t.copy_(torch.randn(c, generator=g))
+            bn.inv_std.copy_(torch.rand(c, generator=g) + 0.5)
+        bn = bn.eval().requires_grad_(False).to(device)
+        alpha = torch.randn(c, generator=g).to(device)
+        x = torch.randn(shape, device=device)
+        tables = (bn.mean, bn.inv_std, bn.gamma, bn.beta, alpha)
+        with torch.inference_mode():
+            for dt, bits in ((torch.float32, torch.int32),
+                             (torch.bfloat16, torch.int16)):
+                bnd, xd = copy.deepcopy(bn).to(dt), x.to(dt)
+                check(torch.equal(
+                    bn_prelu.bn_prelu(xd, *(t.to(dt) for t in tables))
+                    .view(bits),
+                    F.prelu(bnd(xd), alpha.to(dt)).view(bits)),
+                    f"bn_prelu == its plain version at {shape}, {dt}")
+                del bnd, xd
+            kernel, host = time_ms(
+                torch, lambda: bn_prelu.bn_prelu(x, *tables), host=True)
+            plain = time_ms(torch, lambda: F.prelu(bn(x), alpha))
+        bound = 8 * x.numel() / HBM_BYTES_PER_S * 1e3
+        out[name] = dict(shape=shape, kernel_ms=kernel, host_ms=host,
+                         plain_ms=plain, bound_ms=bound,
+                         share=bound / kernel)
+        print(f"| {name} | {shape} | {kernel:.4f} | {host:.4f} | "
+              f"{plain:.4f} | {bound:.4f} | {100 * bound / kernel:.1f}% |")
+
+    image, atlas, roi = make_scan(np.random.default_rng(0))
+    centers = np.stack(np.nonzero(ndimage.binary_dilation(
+        roi, iterations=10)), 1).astype(np.int32)
+    net = TriPlanarNet.from_params(
+        init_params(DEFAULT_SPEC, torch.Generator().manual_seed(0)),
+        DEFAULT_SPEC, device)
+    for engine, want in (("patch", 15 * -(-len(centers) // 8192)),
+                         ("fcn", 15)):
+        before = bn_prelu.LAUNCHES
+        runtime.clear_records()
+        with runtime.recording():
+            infer.segment_volume(net, image, atlas, centers, engine=engine,
+                                 chunk=8192)
+        spans = sum(r.attrs["bn_prelu"] for r in runtime.records()
+                    if r.name == "infer.forward")
+        runtime.clear_records()
+        launches = bn_prelu.LAUNCHES - before
+        check(launches == spans == want,
+              f"{engine}: {want} bn_prelu launches a scan")
+        print(f"segment_volume ({engine}, {len(centers)} candidates): "
+              f"{launches} bn_prelu launches, spans say {spans}")
+        out[f"launches_{engine}"] = launches
+    return {"bn_prelu_table": out}
+
+
 def cli_phase(torch, device, smi, image, atlas, roi, labels, params,
               stack, atlas_dir: Path) -> dict:
     """Phase 14: the command line on the card (see the module docstring)."""
@@ -1924,6 +2020,7 @@ def cli_phase(torch, device, smi, image, atlas, roi, labels, params,
                    cli_cc_scipy_s=times["scipy"])
         out.update(filter_table(torch, device, smi))
         out.update(scan_inputs_table(torch, device, smi))
+        out.update(bn_prelu_table(torch, device, smi))
 
         # (d) a train step at patch 40 on the phase-11 stack, border
         # centers among the batch: the plain gather on the card

@@ -103,7 +103,7 @@ from subcort_tpu_torch.models.synthseg import SynthSegUNet, is_synthseg_params
 from subcort_tpu_torch.models.triplanar import (DEFAULT_SPEC, Params,
                                                 TriPlanarNet, TriPlanarSpec,
                                                 predict_proba_chunked)
-from subcort_tpu_torch.ops import scan_inputs
+from subcort_tpu_torch.ops import bn_prelu, scan_inputs
 from subcort_tpu_torch.ops.gather_kernel import prepare_gather_volume
 from subcort_tpu_torch.ops.normalize import normalize_stats, stats_from_moments
 from subcort_tpu_torch.ops.patches import pad_volume
@@ -432,11 +432,13 @@ def _fcn_slab(net, scan, lo, dims, *, stats, atlas, centers, prior_dtype,
     if inputs is None:
         return None
     slab, vecs, lin, norm, cs = inputs
-    with span("infer.forward", request):
+    with span("infer.forward", request) as rec:
+        launches = bn_prelu.thread_launches()
         labels_b, probs_b = fcn_forward_slab(
             net, slab, vecs, want_probs,
             probs_dtype=getattr(torch, np.dtype(probs_dtype).name),
             gather_idx=lin, norm=norm)
+        rec.set(bn_prelu=bn_prelu.thread_launches() - launches)
     labels_b, probs_b = _readback(labels_b, probs_b if want_probs else None,
                                   request)
     return labels_b, probs_b, lo, dims, cs, lin is None
@@ -472,10 +474,12 @@ def _patch_part(net, scan, rows: slice, vecs: np.ndarray, *, chunk,
     scan = _ready(scan)
     with span("infer.upload", request, bytes=vecs.nbytes):
         vecs = _upload(vecs, scan.volume.device)
-    with span("infer.forward", request):
+    with span("infer.forward", request) as rec:
+        launches = bn_prelu.thread_launches()
         labels, probs = forward_centers(
             net, scan.volume, scan.centers[rows], vecs, chunk, want_probs,
             probs_dtype=getattr(torch, np.dtype(probs_dtype).name))
+        rec.set(bn_prelu=bn_prelu.thread_launches() - launches)
     return _readback(labels, probs if want_probs else None, request) + (rows,)
 
 
@@ -581,7 +585,10 @@ def segment_volume(net: TriPlanarNet, image: np.ndarray, atlas: np.ndarray,
     ``infer.upload`` (its prior block), ``infer.slab_inputs``,
     ``infer.forward``, ``infer.readback`` and ``infer.scatter``, or per
     part of the patch engine's centers the same less ``infer.slab_inputs``
-    (its ``infer.upload`` carries the prior rows).
+    (its ``infer.upload`` carries the prior rows). ``infer.forward``'s
+    attribute ``bn_prelu`` counts the BN + PReLU kernel launches it made
+    (:mod:`~subcort_tpu_torch.ops.bn_prelu`): 15 a slab or a chunk on a
+    card, 0 off it.
     """
     if engine not in ("auto", "fcn", "patch"):
         raise ValueError(f"unknown engine {engine!r}")

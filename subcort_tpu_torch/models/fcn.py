@@ -49,11 +49,13 @@ _SLABS_LOCK = threading.Lock()  # the multi-device paths call from threads
 
 def dense_branch_features(branch: _Branch, slab: torch.Tensor) -> torch.Tensor:
     """One branch evaluated densely: (B, 1, H+RF, W+RF) image planes ->
-    (B, fc_conv, H, W) per-pixel branch features (JAX: (B, H, W, F))."""
+    (B, fc_conv, H, W) per-pixel branch features (JAX: (B, H, W, F)). BN
+    and PReLU go through the branch's own :meth:`_Branch.bn_prelu`, as in
+    the patch engine."""
     x = slab
     for i, d in enumerate(DILATIONS, start=1):
         x = F.conv2d(x, getattr(branch, f"conv{i}").weight, dilation=d)
-        x = F.prelu(getattr(branch, f"bn{i}")(x), getattr(branch, f"prelu{i}"))
+        x = branch.bn_prelu(i, x)
         if i == 2:
             x = F.max_pool2d(x, 2, stride=1)
         elif i == 4:

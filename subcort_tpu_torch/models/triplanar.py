@@ -19,7 +19,10 @@ concat(+15 atlas) -> FC 555->270 -> PReLU -> FC 270->15 -> softmax.
 883,455 parameters.
 
 Lasagne semantics kept: convs carry no bias (BN follows); BN at inference
-uses the *stored* inv_std, ``(x - mean) * (inv_std * gamma) + beta``; in
+uses the *stored* inv_std, ``(x - mean) * (inv_std * gamma) + beta``, which
+with the PReLU after it is one CUDA kernel on a card, in float32 or
+bfloat16 (:meth:`_Branch.bn_prelu`, ``ops/bn_prelu.py``), and bit for bit
+the four PyTorch ops it replaces; in
 training it uses the batch's mean and biased variance over (N, H, W),
 ``inv_std = rsqrt(var + 1e-4)``, and records (mean, inv_std) for
 :func:`update_bn_ema`, which keeps Lasagne's running averages of mean and
@@ -52,9 +55,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from subcort_tpu_torch.config import exact_float32
+from subcort_tpu_torch.ops import bn_prelu
 from subcort_tpu_torch.parallel import sync_bn
 
 Params = Dict[str, torch.Tensor]
+# the device type on which _Branch.bn_prelu takes the kernel
+KERNEL_DEVICE = "cuda"
 
 VIEWS = ("axial", "coronal", "sagittal")
 
@@ -181,11 +187,26 @@ class _Branch(nn.Module):
         self.prelu_d1 = nn.Parameter(torch.full((spec.fc_conv,), 0.25,
                                                 device=device))
 
+    def bn_prelu(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Conv ``i``'s output through BN ``i`` and PReLU ``i``, in both
+        engines (the dense one: ``models/fcn.py::dense_branch_features``).
+        On a card, the kernel of ``ops/bn_prelu.py``, bit for bit the
+        module's BN and ``F.prelu``, which run instead off the card, in
+        training (the batch's statistics) and where autograd records the
+        call: the kernel computes neither statistics nor gradients."""
+        bn, alpha = getattr(self, f"bn{i}"), getattr(self, f"prelu{i}")
+        if (x.device.type != KERNEL_DEVICE or bn.training
+                or torch.is_grad_enabled() and (
+                    x.requires_grad or alpha.requires_grad
+                    or bn.gamma.requires_grad or bn.beta.requires_grad)):
+            return F.prelu(bn(x), alpha)
+        return bn_prelu.bn_prelu(x, bn.mean, bn.inv_std, bn.gamma, bn.beta,
+                                 alpha)
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in (1, 2, 3, 4, 5):
-            x = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x))
-            x = F.prelu(x, getattr(self, f"prelu{i}"))
+            x = self.bn_prelu(i, getattr(self, f"conv{i}")(x))
             if i in (2, 4):
                 x = F.max_pool2d(x, 2)
         if self.training:

@@ -190,7 +190,8 @@ def test_port_exports_what_the_jax_package_exports(package):
                                     "subcort_tpu_torch.utils.graphs",
                                     "subcort_tpu_torch.engine.views",
                                     "subcort_tpu_torch.models.fastsurfer",
-                                    "subcort_tpu_torch.ops.scan_inputs"])
+                                    "subcort_tpu_torch.ops.scan_inputs",
+                                    "subcort_tpu_torch.ops.bn_prelu"])
 def test_new_modules_alone_import_no_jax(module):
     """Each module of the command-line and multi-device slices, and the
     CUDA-graph helper of the registration levels and the train multistep,

@@ -5,7 +5,12 @@ CPU, the post-process's component filter kernel against scipy (MNI-sized
 noise, a snake past the plain version's sweep cap, ties), the dense scan's
 input kernels (``scan_moments``, ``prior_rows``) against their plain
 versions at MNI size and ``segment_volume`` through them against the
-same call with the plain versions on the CPU, registration levels replayed from a CUDA graph against the plain loop
+same call with the plain versions on the CPU, the BN + PReLU kernel
+against its plain version in float32 and bfloat16 at every layer both
+engines feed it, at odd shapes and values and past 2**31 values, the
+dispatch on the card in training and under autograd, and
+``segment_volume`` through it against the same call with the plain four
+passes, registration levels replayed from a CUDA graph against the plain loop
 (also captured on a second thread while the main one segments), the train
 multistep and ``Trainer.fit`` replaying one captured step against the
 plain loop (float32, bfloat16, patch 40, a learning-rate schedule, a
@@ -41,6 +46,7 @@ import pickle
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from subcort_tpu_torch.config import Options
 from subcort_tpu_torch.engine import Trainer, TrainingIndex, segment_volume
@@ -730,6 +736,241 @@ def test_segment_volume_card_inputs_equal_the_host_path(cuda_device,
     assert scan_inputs.LAUNCHES == before + (case != "float32_scan") + slabs
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+# the patch engine's BN + PReLU inputs: a chunk of 8,192 and scan_dense's
+# short last chunk (204,403 = 24 x 8,192 + 7,795), at each conv's output
+PATCH_LAYERS = [(n, c, s, s) for n in (8192, 7795)
+                for c, s in ((20, 30), (20, 28), (40, 12), (40, 10), (60, 3))]
+# odd planes, channel counts no multiple of 4, one value, none, a wide
+# layer whose tables take more than the default 48 KiB of shared memory
+ODD_LAYERS = [(3, 7, 5, 3), (2, 5, 1, 1), (1, 1, 1, 1), (0, 20, 30, 30),
+              (2, 4000, 1, 3)]
+SPECIALS = [float("nan"), float("inf"), -float("inf"), -0.0, 0.0, 1e-40,
+            -1e-40, 1e-45, 3e-39]
+BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def _bn_layer(c, device, seed, dtype=torch.float32):
+    """A BN module of ``c`` channels in eval mode with random tables and
+    PReLU alphas of both signs, in ``dtype``; channel 0 scales by about
+    1e-38, so that its outputs are denormal."""
+    from subcort_tpu_torch.models.triplanar import _BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    bn = _BatchNorm(c, 1e-4)
+    with torch.no_grad():
+        bn.mean.copy_(torch.randn(c, generator=g))
+        bn.inv_std.copy_(torch.rand(c, generator=g) * 3 + 0.1)
+        bn.gamma.copy_(torch.randn(c, generator=g))
+        bn.beta.copy_(torch.randn(c, generator=g))
+        bn.mean[0], bn.inv_std[0], bn.gamma[0], bn.beta[0] = 0, 1e-8, 1e-30, 0
+    alpha = torch.randn(c, generator=g)
+    return (bn.eval().requires_grad_(False).to(device, dtype),
+            alpha.to(device, dtype))
+
+
+def _layer_input(shape, device, seed, offset=0, dtype=torch.float32):
+    """A normal (N, C, H, W) input in ``dtype`` with NaN, infinities, -0.0
+    and denormals at its first and at random places; ``offset`` values
+    into its storage, so that 1 to 3 shift it off the alignment of four
+    values."""
+    n = int(np.prod(shape))
+    g = torch.Generator(device=device).manual_seed(seed)
+    flat = torch.empty(n + offset, device=device).normal_(generator=g)
+    flat = flat.to(dtype)[offset:]
+    if n:
+        special = torch.tensor(SPECIALS, device=device, dtype=dtype)
+        places = torch.randint(0, n, (1024,), device=device, generator=g)
+        flat[places] = special[torch.arange(1024, device=device)
+                               % len(SPECIALS)]
+        flat[:min(n, len(SPECIALS))] = special[:n]
+    return flat.view(shape)
+
+
+def _same_bits(a, b) -> bool:
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(BITS[a.dtype]), b.view(BITS[b.dtype])))
+
+
+def _kernel_of(x, bn, alpha):
+    from subcort_tpu_torch.ops import bn_prelu
+
+    return bn_prelu.bn_prelu(x, bn.mean, bn.inv_std, bn.gamma, bn.beta,
+                             alpha)
+
+
+def _check_bn_prelu(shape, device, seed, offset=0, dtype=torch.float32):
+    from subcort_tpu_torch.ops import bn_prelu
+
+    bn, alpha = _bn_layer(shape[1], device, seed, dtype)
+    x = _layer_input(shape, device, seed, offset, dtype)
+    before = bn_prelu.LAUNCHES
+    got = _kernel_of(x, bn, alpha)
+    assert bn_prelu.LAUNCHES == before + (1 if x.numel() else 0)
+    assert _same_bits(got, F.prelu(bn(x), alpha)), (shape, offset, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PATCH_LAYERS + ODD_LAYERS)
+def test_bn_prelu_kernel_equals_plain(cuda_device, shape):
+    """The BN + PReLU kernel against its plain version (the BN module's
+    three ATen ops and ``F.prelu``) on the same card tensors, bit for bit,
+    at every layer a patch chunk and scan_dense's short last chunk feed
+    it, and at odd planes, channel counts no multiple of 4, one value,
+    none, and tables past 48 KiB of shared memory: NaN, infinities, -0.0,
+    denormal inputs and outputs, negative alphas."""
+    _check_bn_prelu(shape, cuda_device, seed=sum(shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PATCH_LAYERS[:5] + ODD_LAYERS)
+def test_bn_prelu_kernel_bfloat16_equals_plain(cuda_device, shape):
+    """The kernel on a bfloat16 net's layers (``compute_dtype =
+    bfloat16``) against the plain ops, which round each result to
+    bfloat16: bit for bit, at a patch chunk's layers and the odd shapes,
+    special values included."""
+    _check_bn_prelu(shape, cuda_device, seed=sum(shape),
+                    dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_bn_prelu_kernel_off_alignment(cuda_device):
+    """Inputs that start 1, 2 and 3 values off the alignment of four
+    values take the one-value path, bit for bit, in float32 and
+    bfloat16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for offset in (1, 2, 3):
+            _check_bn_prelu((4, 7, 12, 12), cuda_device, seed=offset,
+                            offset=offset, dtype=dtype)
+
+
+@pytest.mark.cuda
+def test_bn_prelu_kernel_past_2_31_values(cuda_device):
+    """A patch chunk of 119,306 rows at conv1 (2,147,508,000 values, past
+    the 2**31 a launch takes): two launches split between samples, bit for
+    bit the plain ops at both ends and across the split."""
+    from subcort_tpu_torch.ops import bn_prelu
+
+    shape = (119306, 20, 30, 30)
+    per = (bn_prelu.MAX_ELEMENTS - 1) // (20 * 30 * 30)
+    bn, alpha = _bn_layer(20, cuda_device, seed=9)
+    x = torch.empty(shape, device=cuda_device).normal_(
+        generator=torch.Generator(device=cuda_device).manual_seed(9))
+    before = bn_prelu.LAUNCHES
+    got = _kernel_of(x, bn, alpha)
+    assert bn_prelu.LAUNCHES == before + 2
+    for lo, hi in ((0, 3), (per - 3, per + 2), (shape[0] - 3, shape[0])):
+        assert _same_bits(got[lo:hi], F.prelu(bn(x[lo:hi]), alpha)), lo
+    del x, got
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_bn_prelu_card_training_and_autograd_take_the_plain_path(
+        cuda_device):
+    """On the card a trainable net's branch launches the kernel at each
+    layer in eval mode without grad, and not in training mode or where
+    autograd records the call; every output equals the module's BN and
+    ``F.prelu``."""
+    from subcort_tpu_torch.ops import bn_prelu
+
+    net = TriPlanarNet.from_params(
+        init_params(NARROW, torch.Generator().manual_seed(8)), NARROW,
+        cuda_device, trainable=True)
+    branch = net.axial
+    x = torch.randn(5, NARROW.conv_filters[0], 9, 9, device=cuda_device)
+    for training, grad, launches in ((False, False, 1), (False, True, 0),
+                                     (True, False, 0), (True, True, 0)):
+        branch.train(training)
+        with torch.set_grad_enabled(grad):
+            before = bn_prelu.LAUNCHES
+            got = branch.bn_prelu(1, x)
+            assert bn_prelu.LAUNCHES == before + launches
+            want = F.prelu(branch.bn1(x), branch.prelu1)
+            assert _same_bits(got.detach(), want.detach())
+
+
+@pytest.mark.cuda
+def test_bn_prelu_kernel_at_a_dense_slab(cuda_device, monkeypatch):
+    """Every layer of a dense slab at scan_dense's bbox (80 x 96 x 80, the
+    full-width net): the 15 shapes the slab feeds the kernel, each taken
+    once (15 launches a slab), and the kernel at each of them against the
+    plain version, bit for bit."""
+    from subcort_tpu_torch.models.triplanar import DEFAULT_SPEC
+    from subcort_tpu_torch.ops import bn_prelu
+
+    net = TriPlanarNet.from_params(
+        init_params(DEFAULT_SPEC, torch.Generator().manual_seed(6)),
+        DEFAULT_SPEC, cuda_device)
+    shapes, real = [], bn_prelu.bn_prelu
+    monkeypatch.setattr(bn_prelu, "bn_prelu", lambda x, *tables: (
+        shapes.append(tuple(x.shape)) or real(x, *tables)))
+    dims = (80, 96, 80)
+    slab = torch.randn([d + fcn.RF for d in dims], device=cuda_device)
+    vecs = torch.rand(int(np.prod(dims)), 15, device=cuda_device)
+    before = bn_prelu.LAUNCHES
+    fcn.fcn_forward_slab(net, slab, vecs)
+    assert bn_prelu.LAUNCHES == before + 15
+    assert len(shapes) == 15 and (96, 40, 102, 102) in shapes
+    monkeypatch.undo()
+    for k, shape in enumerate(shapes):
+        _check_bn_prelu(shape, cuda_device, seed=k)
+
+
+def _segment_volume_against_plain(device, monkeypatch, engine, dtype):
+    """``segment_volume`` on an MNI-sized scan (204,403 candidates) with the
+    full-width net in ``dtype`` through the kernel, then with every
+    branch's BN + PReLU the plain ops: labels and float32 probabilities
+    equal, 15 launches a patch chunk (25 chunks) or a dense slab, none on
+    the plain call."""
+    from subcort_tpu_torch.engine import infer
+    from subcort_tpu_torch.models.triplanar import DEFAULT_SPEC, _Branch
+    from subcort_tpu_torch.ops import bn_prelu
+
+    image, atlas, centers = _mni_scan_inputs(3)
+    net = TriPlanarNet.from_params(
+        init_params(DEFAULT_SPEC, torch.Generator().manual_seed(7)),
+        DEFAULT_SPEC, device)
+    kw = dict(want_probs=True, engine=engine, probs_dtype=np.float32,
+              compute_dtype=dtype)
+    if engine == "patch":
+        kw["chunk"] = 8192
+        units = -(-len(centers) // 8192)
+    else:
+        lo, dims = infer._bbox_of(centers, image.shape)
+        units = len(infer._dense_jobs(lo, dims, 1, 6_000_000, True))
+    before = bn_prelu.LAUNCHES
+    got = segment_volume(net, image, atlas, centers, **kw)
+    torch.cuda.synchronize()
+    assert bn_prelu.LAUNCHES == before + 15 * units
+    monkeypatch.setattr(_Branch, "bn_prelu", lambda self, i, x: F.prelu(
+        getattr(self, f"bn{i}")(x), getattr(self, f"prelu{i}")))
+    want = segment_volume(net, image, atlas, centers, **kw)
+    assert bn_prelu.LAUNCHES == before + 15 * units
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["patch", "fcn"])
+def test_segment_volume_bn_prelu_equals_plain(cuda_device, monkeypatch,
+                                              engine):
+    """An MNI-sized scan through the full-width float32 net on the card:
+    the kernel's path equals the plain four passes' (see
+    ``_segment_volume_against_plain``)."""
+    _segment_volume_against_plain(cuda_device, monkeypatch, engine,
+                                  "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["patch", "fcn"])
+def test_segment_volume_bn_prelu_bfloat16_equals_plain(cuda_device,
+                                                       monkeypatch, engine):
+    """The same at ``compute_dtype = bfloat16``: the kernel's path equals
+    the plain ops', each rounded to bfloat16."""
+    _segment_volume_against_plain(cuda_device, monkeypatch, engine,
+                                  "bfloat16")
 
 
 @pytest.mark.cuda
