@@ -276,6 +276,19 @@ and the exit code is non-zero:
    (.pt), each writing out_subcortical_seg_prec.nii.gz of the input's
    shape, equal to the timed call's labels. Alone:
    python3 -c 'import chip_smoke as c; c.synthseg_alone()';
+20. SwinUNETR's sliding-window path (engine/swinunetr.py) at the published
+   widths (48 to 768 channels, 7^3 windows, 3-24 heads, 15 classes) on the
+   phase-4 scan, with the benchmark's seeded weights
+   (benchmark/weights_swinunetr.py, centred on that scan):
+   segment_swinunetr warm and timed (12 windows of 128^3, one filter
+   launch a scan), its peak memory, the encoder's and the decoder's
+   milliseconds by the spans' CUDA events; the program's blended logits
+   against the plain reference's (benchmark/reference/swinunetr.py) under
+   benchmark/limits/scan_swinunetr.json, the labels equal to the
+   reference's post-process of the program's raw labels; then
+   SegmentationEngine.segment_scan and cli infer on a SwinUNETR state dict
+   (.pt), each equal to the timed call's labels. Alone:
+   python3 -c 'import chip_smoke as c; c.swinunetr_alone()';
 13. printed last: one JSON line of kernel facts (with dp_* keys: the
    two-device patch launches, launches per rank, the backends; bench_*
    keys: each benchmark's launches, steps + eval batches and seconds;
@@ -2973,6 +2986,119 @@ def synthseg_alone() -> dict:
     return synthseg_phase(torch, torch.device("cuda", 0), image)
 
 
+def swinunetr_phase(torch, device, image) -> dict:
+    """Phase 20: SwinUNETR's sliding-window path at the published widths
+    (see the module docstring)."""
+    import tempfile
+
+    from benchmark import weights_swinunetr
+    from benchmark.reference import swinunetr as ref
+    from subcort_tpu_torch import Options, SegmentationEngine, load_nii
+    from subcort_tpu_torch.engine import swinunetr
+    from subcort_tpu_torch.io import NiftiImage, save_nii
+    from subcort_tpu_torch.models.swinunetr import SwinUNETR
+    from subcort_tpu_torch.ops import connected
+    from subcort_tpu_torch.utils import runtime
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "benchmark"
+    cfg = json.loads((root / "configs" / "swin_unetr.json").read_text())
+    limits = json.loads((root / "limits" / "scan_swinunetr.json")
+                        .read_text())
+    params = weights_swinunetr.make_weights(cfg, 20, device)
+    weights_swinunetr.center(params, image, device)
+    net = SwinUNETR.from_params(params, device)
+    swinunetr.segment_swinunetr(net, image, (1, 1, 1), device)
+    windows, launches = swinunetr.WINDOWS, connected.FILTER_LAUNCHES
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    labels = swinunetr.segment_swinunetr(net, image, (1, 1, 1), device)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    windows = swinunetr.WINDOWS - windows
+    launches = connected.FILTER_LAUNCHES - launches
+    check(labels.shape == image.shape and labels.dtype == np.uint8
+          and labels.max() <= 14, f"segment_swinunetr labels {labels.shape}")
+    check(windows == ref.window_count(image.shape) and launches == 1,
+          f"segment_swinunetr ran {windows} windows, {launches} filter "
+          "launches")
+    runtime.clear_records()
+    with runtime.recording():
+        swinunetr.segment_swinunetr(net, image, (1, 1, 1), device)
+    fwd = [r for r in runtime.records() if r.name == "swinunetr.forward"]
+    runtime.clear_records()
+    enc = sum(r.attrs["encoder_ms"] for r in fwd)
+    dec = sum(r.attrs["decoder_ms"] for r in fwd)
+    logits = swinunetr.blended_logits(net, image, (1, 1, 1), device)
+    want = ref.blended_logits(params, image, device)
+    gap = ref.logit_gap(want, logits.argmax(0))
+    err = ref.logit_error(want, logits)
+    del want
+    mismatch = int(np.count_nonzero(ref.labels(logits) != labels))
+    del logits
+    present = np.unique(labels)
+    print(f"segment_swinunetr at the published widths: {seconds:.3f} s a "
+          f"scan ({windows} windows), peak {peak} bytes, encoder "
+          f"{enc:.1f} ms and decoder {dec:.1f} ms a scan by events "
+          f"({100 * enc / (enc + dec):.1f}% encoder), {len(present)} classes "
+          f"present; logit gap {gap:.3e} (limit "
+          f"{limits['logit_gap']['limit']}), largest |L - L_ref| {err:.3e} "
+          f"(limit {limits['logit_error']['limit']}), post-process "
+          f"mismatch {mismatch}")
+    check(gap <= limits["logit_gap"]["limit"],
+          f"logit gap {gap} over its limit")
+    check(err <= limits["logit_error"]["limit"],
+          f"largest |L - L_ref| {err} over its limit")
+    check(mismatch == 0, f"post-process mismatch {mismatch}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        sub = work / "scans" / "s00"
+        sub.mkdir(parents=True)
+        save_nii(NiftiImage(image, np.eye(4)), str(sub / "T1.nii.gz"))
+        host = {k: v.cpu() for k, v in params.items()}
+        engine = SegmentationEngine(host, Options(
+            mode="cuda0", test_folder=str(work / "scans"), net_verbose=0))
+        engine.segment_scan(str(sub / "T1.nii.gz"))
+        out = sub / "out_subcortical_seg_prec.nii.gz"
+        via_engine = load_nii(str(out)).data
+        out.unlink()
+        (work / "w" / "sw").mkdir(parents=True)
+        torch.save(host, str(work / "w" / "sw" / "sw.pt"))
+        cfg_path = work / "configuration.cfg"
+        cfg_path.write_text(
+            f"[database]\ninference_folder = {work / 'scans'}\n"
+            "t1_name = T1.nii.gz\n\n[model]\nname = sw\nmode = cuda0\n"
+            "net_verbose = 0\n")
+        run_cli("infer", "--config", str(cfg_path), "--weights-path",
+                str(work / "w"))
+        via_cli = load_nii(str(out)).data
+    for name, got in (("segment_scan", via_engine), ("cli infer", via_cli)):
+        check(got.shape == image.shape and np.array_equal(got, labels),
+              f"{name} wrote {got.shape}, equal to the timed labels: "
+              f"{np.array_equal(got, labels)}")
+    out = {"swinunetr_s": seconds, "swinunetr_peak_bytes": peak,
+           "swinunetr_windows": windows, "swinunetr_encoder_ms": enc,
+           "swinunetr_decoder_ms": dec, "swinunetr_logit_gap": gap,
+           "swinunetr_logit_error": err,
+           "swinunetr_phase_s": time.perf_counter() - t_phase}
+    print(f"phase 20: {out['swinunetr_phase_s']:.3f} s")
+    return out
+
+
+def swinunetr_alone() -> dict:
+    """Phase 20 by itself, on an MNI-sized scan of ``frozen.make_scan``."""
+    import torch
+
+    from benchmark import frozen
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    image = frozen.make_scan(np.random.default_rng(20))[0]
+    return swinunetr_phase(torch, torch.device("cuda", 0), image)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3352,6 +3478,9 @@ def main() -> None:
 
     # 19. SynthSeg's whole-volume path
     bench.update(synthseg_phase(torch, device, image))
+
+    # 20. SwinUNETR's sliding-window path
+    bench.update(swinunetr_phase(torch, device, image))
 
     # 13. results
     print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all")

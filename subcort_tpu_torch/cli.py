@@ -113,7 +113,8 @@ def _load_weights(weights_path: str, experiment: str, load_theano):
     network, Theano format), else ``<experiment>.pt``, a state dict saved
     by ``torch.save``: FastSurfer's, one a view (``{"axial": ...,
     "coronal": ..., "sagittal": ...}``), which the engine runs by the
-    multi-view path, or SynthSeg's, which it runs by SynthSeg's path."""
+    multi-view path, or SynthSeg's or SwinUNETR's (MONAI's names), which
+    it runs by their paths."""
     stem = os.path.join(weights_path, experiment, experiment)
     if os.path.exists(stem + ".pkl") or not os.path.exists(stem + ".pt"):
         print("--> loading weights from", stem + ".pkl")

@@ -1,6 +1,6 @@
 """Workload layer: inference by the dense evaluator or the patch engine,
-by FastSurferCNN's three views or by SynthSeg's 3D U-Net, training, and
-the leave-one-out driver."""
+by FastSurferCNN's three views, by SynthSeg's 3D U-Net or by SwinUNETR's
+sliding windows, training, and the leave-one-out driver."""
 
 from subcort_tpu_torch.engine.data import (  # noqa: F401
     Subject,
@@ -33,6 +33,7 @@ from subcort_tpu_torch.engine.metrics import (  # noqa: F401
 from subcort_tpu_torch.engine.postprocess import (  # noqa: F401
     post_process_segmentation,
 )
+from subcort_tpu_torch.engine.swinunetr import segment_swinunetr  # noqa
 from subcort_tpu_torch.engine.synthseg import segment_synthseg  # noqa: F401
 from subcort_tpu_torch.engine.views import segment_views  # noqa: F401
 from subcort_tpu_torch.engine.train import (  # noqa: F401

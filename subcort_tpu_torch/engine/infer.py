@@ -68,8 +68,12 @@ SynthSeg state dict it holds SynthSeg's 3D U-Net
 (:class:`~subcort_tpu_torch.models.synthseg.SynthSegUNet`) and runs
 :func:`~subcort_tpu_torch.engine.synthseg.segment_synthseg`, whose own
 topology post-process on the card takes the place of the label filter
-with ``post_process``. Neither takes an atlas, registration, candidates
-or priors; the options they cannot run (``out_probabilities``,
+with ``post_process``. Handed a SwinUNETR state dict (MONAI's names) it
+holds :class:`~subcort_tpu_torch.models.swinunetr.SwinUNETR` and runs
+:func:`~subcort_tpu_torch.engine.swinunetr.segment_swinunetr` (128^3
+windows, Gaussian blending), ``post_process`` keeping each class's largest
+component on the device. None of them takes an atlas, registration,
+candidates or priors; the options they cannot run (``out_probabilities``,
 ``data_parallel > 1``, a ``compute_dtype`` other than float32,
 ``bugcompat_postprocess_argmax``) raise a :class:`ValueError`.
 """
@@ -93,12 +97,14 @@ from subcort_tpu_torch.engine.data import _configured_register
 from subcort_tpu_torch.engine.forward import forward_centers
 from subcort_tpu_torch.engine.metrics import ScanStats
 from subcort_tpu_torch.engine.postprocess import post_process_segmentation
+from subcort_tpu_torch.engine.swinunetr import segment_swinunetr
 from subcort_tpu_torch.engine.synthseg import segment_synthseg
 from subcort_tpu_torch.engine.views import segment_views, zooms_of
 from subcort_tpu_torch.io import NiftiImage, load_nii, save_nii
 from subcort_tpu_torch.models.fastsurfer import (FastSurferViews,
                                                  is_view_params)
 from subcort_tpu_torch.models.fcn import HALF, RF, fcn_forward_slab
+from subcort_tpu_torch.models.swinunetr import SwinUNETR, is_swinunetr_params
 from subcort_tpu_torch.models.synthseg import SynthSegUNet, is_synthseg_params
 from subcort_tpu_torch.models.triplanar import (DEFAULT_SPEC, Params,
                                                 TriPlanarNet, TriPlanarSpec,
@@ -765,7 +771,7 @@ class _BoundedWriter:
 def test_scan(net: TriPlanarNet, scan_path: str, options: Options,
               register_fn=None, device: Optional[torch.device] = None,
               devices: Optional[Sequence[torch.device]] = None,
-              _inputs=None, _writer=None) -> float:
+              _inputs=None, _writer=None, on_raw_labels=None) -> float:
     """Full per-scan pipeline with the reference's file contract
     (base.py:401-458). Returns elapsed minutes, like the reference.
     ``devices`` (default: what ``[tpu] data_parallel`` asks for,
@@ -786,12 +792,19 @@ def test_scan(net: TriPlanarNet, scan_path: str, options: Options,
     (the scan's folder), with ``infer.load``, ``infer.candidates``,
     ``infer.segment_volume`` and ``infer.write`` under it; the pipelined
     sweep's load and write run on their threads under the same request.
+
+    ``on_raw_labels(subject, labels)``, where given, receives the scan's
+    labels on this thread before the write's post-process: the engine's
+    raw labels for the tri-planar net and FastSurfer's; SynthSeg and
+    SwinUNETR post-process on the device inside their segmentation, so
+    theirs are what is written. The array must not be changed.
     """
     kind = kind_of_net(net)
     kind.check(options)
     with span("infer.scan", _subject(scan_path)):
         return kind.scan(net, scan_path, options, register_fn, device,
-                         devices, _inputs, _writer)
+                         devices, _inputs, _writer,
+                         on_raw_labels=on_raw_labels)
 
 
 def _deliver(write_outputs, s_time: float, stats: ScanStats,
@@ -818,7 +831,8 @@ def _load_volume_inputs(scan_path: str, options: Options = None,
 
 
 def _test_scan_volume(segment, finish, net, scan_path, options, register_fn,
-                      device, devices, _inputs, _writer) -> float:
+                      device, devices, _inputs, _writer,
+                      on_raw_labels=None) -> float:
     """:func:`test_scan` by a whole-volume network, inside its span: the
     labels of ``segment(net, image, zooms, options, device)``, and, with
     ``post_process``, ``finish(labels, options, device)`` (None: the
@@ -832,6 +846,8 @@ def _test_scan_volume(segment, finish, net, scan_path, options, register_fn,
     labels = segment(net, image, zooms_of(t1.affine), options, on)
     affine = t1.affine
     subject = _subject(scan_path)
+    if on_raw_labels is not None:
+        on_raw_labels(subject, labels)
 
     def write_outputs():
         with span("infer.write", subject):
@@ -866,8 +882,14 @@ def _synthseg_labels(net, image, zooms, options, device):
                             post_process=options.bool("post_process"))
 
 
+def _swinunetr_labels(net, image, zooms, options, device):
+    return segment_swinunetr(net, image, zooms, device=device,
+                             post_process=options.bool("post_process"),
+                             cc_backend=options["cc_backend"])
+
+
 def _test_scan(net, scan_path, options, register_fn, device, devices,
-               _inputs, _writer) -> float:
+               _inputs, _writer, on_raw_labels=None) -> float:
     """:func:`test_scan` inside its span."""
     s_time = time.time()
     image_dir, _ = os.path.split(scan_path)
@@ -898,6 +920,8 @@ def _test_scan(net, scan_path, options, register_fn, device, devices,
     seg_dtype = image.dtype if image.dtype.kind in "iu" else np.uint8
     cc_device = device if device is not None else next(net.parameters()).device
     subject = _subject(scan_path)
+    if on_raw_labels is not None:
+        on_raw_labels(subject, label_vol)
 
     def write_outputs():
         with span("infer.write", subject):
@@ -935,8 +959,8 @@ class NetworkKind(NamedTuple):
     which raises for an option its path cannot run; ``load(scan_path,
     options, register_fn, device, request)``, a scan's host prep (what
     ``test_scan`` takes as ``_inputs``); ``scan(net, scan_path, options,
-    register_fn, device, devices, _inputs, _writer)``, the body of
-    :func:`test_scan`; ``patches``, whether it takes patch batches and
+    register_fn, device, devices, _inputs, _writer, on_raw_labels=)``, the
+    body of :func:`test_scan`; ``patches``, whether it takes patch batches and
     candidates (``predict_proba``, data parallelism, registration)."""
     name: str
     net_type: type
@@ -976,8 +1000,15 @@ SYNTHSEG = NetworkKind(
     functools.partial(check_volume_options, path="SynthSeg's path"),
     _load_volume_inputs,
     functools.partial(_test_scan_volume, _synthseg_labels, None), False)
+SWINUNETR = NetworkKind(
+    "SwinUNETR", SwinUNETR, is_swinunetr_params,
+    lambda params, options, spec, device: SwinUNETR.from_params(
+        params, device),
+    functools.partial(check_volume_options, path="SwinUNETR's path"),
+    _load_volume_inputs,
+    functools.partial(_test_scan_volume, _swinunetr_labels, None), False)
 # the first whose ``owns`` (or net type) fits; the tri-planar net last
-KINDS = (VIEWS, SYNTHSEG, TRIPLANAR)
+KINDS = (VIEWS, SYNTHSEG, SWINUNETR, TRIPLANAR)
 
 
 def kind_of_params(params) -> NetworkKind:
@@ -999,8 +1030,8 @@ class SegmentationEngine:
     :func:`~subcort_tpu_torch.models.load_theano_checkpoint` or
     :func:`~subcort_tpu_torch.models.params_from_jax`), FastSurfer
     state dicts, one a view (``{"axial": ..., "coronal": ...,
-    "sagittal": ...}``), for the multi-view path, or a SynthSeg state
-    dict for SynthSeg's path (:data:`KINDS`); the device comes
+    "sagittal": ...}``), for the multi-view path, or a SynthSeg or a
+    SwinUNETR state dict for their paths (:data:`KINDS`); the device comes
     from ``options.mode`` (:func:`~subcort_tpu_torch.config.select_device`),
     and the net is held in ``options.compute_dtype``. ``[tpu]
     data_parallel > 1`` segments every scan over ``devices``
@@ -1019,10 +1050,10 @@ class SegmentationEngine:
         self.register_fn = register_fn
         self._load_stream = None
 
-    def segment_scan(self, scan_path: str) -> float:
+    def segment_scan(self, scan_path: str, on_raw_labels=None) -> float:
         return test_scan(self.net, scan_path, self.options,
                          register_fn=self.register_fn, device=self.device,
-                         devices=self.devices)
+                         devices=self.devices, on_raw_labels=on_raw_labels)
 
     def predict_proba(self, batch) -> np.ndarray:
         """``net.predict_proba`` migration shim (reference nets.py /
@@ -1059,9 +1090,11 @@ class SegmentationEngine:
         stream.synchronize()
         return out
 
-    def segment_folder(self) -> dict:
+    def segment_folder(self, on_raw_labels=None) -> dict:
         """Sweep the configured inference folder (train_model.py:68-78
-        flow). Returns {subject: minutes}.
+        flow). Returns {subject: minutes}. ``on_raw_labels(subject,
+        labels)`` receives each scan's labels before the write's
+        post-process, on the calling thread (:func:`test_scan`).
 
         With ``[tpu] folder_pipeline`` on, the sweep is pipelined: while
         the device segments scan *i*, one loader thread prepares scan
@@ -1086,10 +1119,12 @@ class SegmentationEngine:
             pairs = distributed.host_shard(pairs)
         times = {}
         if not self.options.bool("folder_pipeline") or len(pairs) <= 1:
+            hook = ({} if on_raw_labels is None
+                    else {"on_raw_labels": on_raw_labels})
             for path, sub in pairs:
                 if self.options.bool("debug"):
                     print("--> testing scan", sub)
-                times[sub] = self.segment_scan(path)
+                times[sub] = self.segment_scan(path, **hook)
             return times
 
         # separate single-thread pools: a slow write (a 430 MB prob-map
@@ -1108,7 +1143,8 @@ class SegmentationEngine:
                     times[sub] = test_scan(self.net, path, self.options,
                                            device=self.device,
                                            devices=self.devices,
-                                           _inputs=inputs, _writer=writer)
+                                           _inputs=inputs, _writer=writer,
+                                           on_raw_labels=on_raw_labels)
                 writer.drain()
             except BaseException:
                 # a failed scan or prefetch must not discard the errors of

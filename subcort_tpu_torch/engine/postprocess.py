@@ -151,3 +151,17 @@ def post_process_segmentation(image_folder: str, input_mask: np.ndarray,
         else:
             full[sl] = _filter_on_device(crop, atlas_crop, num_classes, dev)
     return full
+
+
+def filter_whole_volume(labels: torch.Tensor,
+                        num_classes: int = 15) -> torch.Tensor:
+    """:func:`post_process_segmentation` with a whole-volume atlas mask on
+    ``labels``' device (a uint8 tensor): each class's largest component,
+    by :func:`filter_components` over the whole volume at once, with
+    nothing read back. The foreground crop the host path takes changes no
+    voxel (its halo keeps every component inside it, in the same raster
+    order)."""
+    with span("postprocess.filter", voxels=int(labels.numel()),
+              on_card=int(labels.is_cuda)):
+        return filter_components(labels, torch.ones_like(labels),
+                                 num_classes)

@@ -142,7 +142,14 @@ def normalize(raw: torch.Tensor) -> torch.Tensor:
 def pad(volume: torch.Tensor, multiple: int):
     """``volume`` zero-padded centrally to multiples of ``multiple`` a
     side, and the offsets at which it sits in the result."""
-    shape = tuple(-(-s // multiple) * multiple for s in volume.shape)
+    return pad_to(volume, tuple(-(-s // multiple) * multiple
+                                for s in volume.shape))
+
+
+def pad_to(volume: torch.Tensor, shape):
+    """``volume`` zero-padded centrally to ``shape`` (no side less than
+    its own; an odd extra voxel at the end), and the offsets at which it
+    sits in the result."""
     offsets = tuple((p - s) // 2 for p, s in zip(shape, volume.shape))
     out = volume.new_zeros(shape)
     out[tuple(slice(o, o + s) for o, s in zip(offsets, volume.shape))] = \

@@ -1,5 +1,6 @@
 """The tri-planar CNN, its dense (à-trous) evaluator and its checkpoint
-importers; FastSurferCNN's view networks; SynthSeg's 3D U-Net."""
+importers; FastSurferCNN's view networks; SynthSeg's 3D U-Net;
+SwinUNETR."""
 
 from subcort_tpu_torch.models.fastsurfer import (  # noqa: F401
     FastSurferCNN,
@@ -16,6 +17,10 @@ from subcort_tpu_torch.models.importer import (  # noqa: F401
     load_theano_checkpoint,
     params_from_jax,
     save_theano_checkpoint,
+)
+from subcort_tpu_torch.models.swinunetr import (  # noqa: F401
+    SwinUNETR,
+    SwinUNETRSpec,
 )
 from subcort_tpu_torch.models.synthseg import (  # noqa: F401
     SynthSegSpec,

@@ -26,8 +26,10 @@ card against the CPU at a small spec and one full-width batch of 16 slices
 against the plain reference (``benchmark/reference/fastsurfer.py``), and
 SynthSeg's whole-volume path at a small spec against its plain reference
 (``benchmark/reference/synthseg.py``) on the card, with its component step
-(the filter kernel) against the plain version; each skips without a CUDA
-device.
+(the filter kernel) against the plain version, and SwinUNETR at the
+published widths on one 128^3 window and its sliding-window path at a cut
+width against its plain reference (``benchmark/reference/swinunetr.py``);
+each skips without a CUDA device.
 
 This file imports no jax and uses no conftest fixture, so it runs on a
 machine that has torch and no jax:
@@ -1860,6 +1862,90 @@ def test_synthseg_component_step_kernel_matches_plain(cuda_device):
     synthseg.keep_largest(plain)
     assert torch.equal(card.cpu(), plain)
     assert not torch.equal(plain, prob)
+
+
+def _swinunetr_setup(device, shape, **cut):
+    """SwinUNETR's config (``cut`` replacing widths) with the benchmark's
+    seeded weights centred on a scan of ``shape`` (``frozen.make_scan``)."""
+    import json
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from benchmark import frozen, weights_swinunetr
+    cfg = dict(json.loads((root / "benchmark/configs/swin_unetr.json")
+                          .read_text()), **cut)
+    image = frozen.make_scan(np.random.default_rng(29), shape)[0]
+    params = weights_swinunetr.make_weights(cfg, 29, device)
+    roi = int(cfg["roi"][0])
+    weights_swinunetr.center(params, image, device, roi, cfg["overlap"])
+    return cfg, params, image
+
+
+@pytest.mark.cuda
+def test_swinunetr_card_matches_reference_at_published_widths(cuda_device):
+    """SwinUNETR at the published widths (48 -> 768, 7^3 windows, 3-24
+    heads) on one 128^3 window on the card: the logits within 1e-4 of the
+    largest of the plain reference's (the TF32 control lies further off),
+    TF32 off whatever the global flags say, and two calls bit-equal."""
+    from benchmark.reference import swinunetr as ref
+    from subcort_tpu_torch.config import exact_float32
+    from subcort_tpu_torch.models.swinunetr import SwinUNETR
+
+    cfg, params, _ = _swinunetr_setup(cuda_device, (128, 128, 128))
+    net = SwinUNETR.from_params(params, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn((1, 1, 128, 128, 128), generator=g, device=cuda_device)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad(), exact_float32():
+            a, b = net(x), net(x)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    with torch.no_grad(), ref.full_float32():
+        want = ref.forward(params, x)
+        low = ref.forward(params, x, "tf32")
+    scale = float(want.abs().max())
+    assert a.shape == (1, 15, 128, 128, 128)
+    assert torch.equal(a, b)
+    assert float((a - want).abs().max()) <= 1e-4 * scale
+    assert float((low - want).abs().max()) > 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_swinunetr_scan_on_card(cuda_device, monkeypatch):
+    """SwinUNETR's path on a 140 x 130 x 120 scan at a cut width (24
+    features, 64^3 windows: 4 x 4 x 3 of them in 12 batches of 4): the
+    blended logits within 1e-4 of the reference's largest, the labels
+    equal to the reference's post-process of the program's own raw
+    labels, one filter launch a scan and a window counted each."""
+    from benchmark.reference import swinunetr as ref
+    from subcort_tpu_torch.engine import swinunetr
+    from subcort_tpu_torch.models.swinunetr import SwinUNETR
+    from subcort_tpu_torch.ops import connected
+
+    cfg, params, image = _swinunetr_setup(cuda_device, (140, 130, 120),
+                                          feature_size=24, roi=[64] * 3)
+    net = SwinUNETR.from_params(params, cuda_device)
+    monkeypatch.setattr(swinunetr, "ROI", 64)
+    logits = swinunetr.blended_logits(net, image, (1, 1, 1), cuda_device)
+    want = ref.blended_logits(params, image, cuda_device, 64, 0.5)
+    assert logits.shape == (15,) + image.shape
+    assert float((logits - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+    windows, launches = swinunetr.WINDOWS, connected.FILTER_LAUNCHES
+    labels = swinunetr.segment_swinunetr(net, image, (1, 1, 1), cuda_device)
+    assert swinunetr.WINDOWS - windows == 48 == ref.window_count(
+        image.shape, 64)
+    assert connected.FILTER_LAUNCHES - launches == 1
+    assert labels.shape == image.shape and labels.dtype == np.uint8
+    assert np.array_equal(labels, ref.labels(logits))
 
 
 @pytest.mark.cuda

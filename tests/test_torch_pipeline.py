@@ -363,3 +363,44 @@ def test_single_volume_gather_matches_jax_at_the_borders(rng, patch):
     got = gather_triplanar_cuda(padded, torch.from_numpy(centers), patch)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_segment_folder_hands_out_the_raw_labels(params, phantom, tmp_path,
+                                                 pipelined):
+    """``segment_folder(on_raw_labels=...)`` hands each subject's raw
+    labels to the hook on the calling thread, serial or pipelined: the
+    written post-processed labels are their post-process against the
+    subject's mask, and with ``post_process`` off the written raw labels
+    are them."""
+    from subcort_tpu_torch.engine.postprocess import \
+        post_process_segmentation
+
+    image, atlas, mask = phantom
+    for post in (True, False):
+        root = tmp_path / f"post{int(post)}"
+        _write_folder(root, image, atlas, mask)
+        got, threads = {}, set()
+
+        def keep(subject, labels):
+            got[subject] = labels.copy()
+            threads.add(threading.get_ident())
+
+        opts = _options(root, folder_pipeline=pipelined, post_process=post,
+                        out_probabilities=False)
+        SegmentationEngine(params, opts).segment_folder(on_raw_labels=keep)
+        assert sorted(got) == list(SUBJECTS)
+        assert threads == {threading.get_ident()}
+        for s in SUBJECTS:
+            if post:
+                written = load_nii(str(root / s /
+                                       "out_subcortical_seg_prec.nii.gz"))
+                want = post_process_segmentation(None, got[s],
+                                                 atlas_mask=mask,
+                                                 cc_backend="scipy")
+            else:
+                written = load_nii(str(root / s /
+                                       "out_subcortical_rawseg.nii.gz"))
+                want = got[s]
+            np.testing.assert_array_equal(written.data, want)
+        assert any((got[s] != 0).any() for s in SUBJECTS)
